@@ -6,20 +6,32 @@
 Phases, in order; any failure raises and exits non-zero:
   1. device: the card's name and power limit, native ingest status;
   2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc;
-  3. kernels: K1 (extract), K2 (merge) and K3 (compact) against their
-     plain torch versions on the card, at the main path's shapes, exactly,
-     with median times from CUDA events;
+  3. kernels: K1 (extract), K2 (merge), K3 (compact) and K4 (block sort)
+     against their plain torch versions on the card, at the main path's
+     shapes, exactly, with median times from CUDA events, beside the
+     library call that computes the same function and the card's bound;
   4. exact run: `count` at k = 15, 21, 31, 32 (once with small batches
      and a lowered device-table bound, so the forest deepens and the table
-     spills), `build -k 21` and the T*40 k = 32 edge, all through the CLI
-     in subprocesses, byte for byte against the numpy oracle of
-     orion_kmer_tpu.codec;
+     spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
+     and `-c 5` and `classify -m 2 --output-tsv`, all through the CLI in
+     subprocesses, exactly against the numpy oracle of the port's own
+     codec.py;
   5. realistic run: `count -k 31 -m 2 --histogram` over a synthetic
      E. coli-like FASTQ (a 4.64 Mbp genome, 150 bp reads, 0.2 %
      substitutions, a few N runs; --gbp of sequence), in process, with the
      kernel launch counters reset just before it; checks the histogram
      mass against the valid windows, ascending output keys and canonical
-     output k-mers.
+     output k-mers;
+  6. realistic joins, in process, counters reset before each command:
+     `build -k 31` of three references (the phase-5 genome, a copy with
+     1 % substitutions, an unrelated 5 Mbp genome), `query -c 10` and
+     `classify -m 2 --output-tsv` over the phase-5 reads, and `compare`
+     against a DB of the first two references; each checked exactly
+     against the oracle (query: every read's hit count from
+     ``engine.query_hits`` against the ids written, and the counts of a
+     sample of 20,000 reads against the oracle); then K4's own
+     entry, `sort_pairs`, on canonical keys of the reads (no command
+     reaches K4).
 The last line is the result JSON; the kernel JSON and the card's
 `nvidia-smi` name and power limit are printed before it.  Needs no
 network and no JAX.
@@ -39,6 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BASES = b"ACGT"
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
 
 def log(msg: str) -> None:
@@ -56,6 +69,11 @@ def gpu_name_and_limit() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def bound_ms(n_bytes: float) -> float:
+    """Least time for the card to move n_bytes through device memory."""
+    return n_bytes / HBM_BYTES_PER_MS
 
 
 def median_ms(torch, fn, reps: int = 10) -> float:
@@ -91,6 +109,31 @@ def oracle_counts(np, codec, records, k):
     return np.unique(np.concatenate(vals) if vals else np.empty(0, np.uint64), return_counts=True)
 
 
+def sorted_unique(np, values):
+    """np.unique by a sort (numpy 2.3.5 hashes, many times slower)."""
+    a = np.sort(values)
+    return a[np.concatenate([[True], a[1:] != a[:-1]])] if a.shape[0] else a
+
+
+def window_hits(np, codec, reads, k, db):
+    """Per-read count of k-mer windows (raw bytes, multiplicity counted)
+    whose canonical value is in the sorted array db."""
+    sep = np.full(k - 1, 255, np.uint8)
+    codes = np.concatenate([x for r in reads for x in (codec.seq_to_codes(r, normalize=False), sep)])
+    lens = np.array([len(r) + k - 1 for r in reads], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    nwin = codes.shape[0] - k + 1
+    vals = np.zeros(nwin, np.uint64)
+    c64 = np.where(codes > 3, 0, codes).astype(np.uint64)
+    for j in range(k):
+        vals = (vals << np.uint64(2)) | c64[j : j + nwin]
+    bad = np.concatenate([[0], np.cumsum(codes > 3)])
+    ok = (bad[k:] - bad[:-k]) == 0
+    hit = ok & np.isin(codec.canonical_u64(vals, k), db)
+    owner = np.searchsorted(starts, np.arange(nwin), side="right") - 1
+    return np.bincount(owner, weights=hit, minlength=len(reads)).astype(np.int64)
+
+
 def render_tsv(np, vals, counts, k) -> bytes:
     """`KMER\\tCOUNT\\n` lines, rendered with numpy alone."""
     n = vals.shape[0]
@@ -115,11 +158,11 @@ def render_tsv(np, vals, counts, k) -> bytes:
     return out.tobytes()
 
 
-def parse_tsv_keys(np, codec, data: bytes, k: int):
-    """u64 k-mers of a count TSV, vectorized."""
+def parse_tsv(np, codec, data: bytes, k: int):
+    """(u64 k-mers, int64 counts) of a count TSV, vectorized."""
     raw = np.frombuffer(data, np.uint8)
     if raw.size == 0:
-        return np.empty(0, np.uint64)
+        return np.empty(0, np.uint64), np.empty(0, np.int64)
     ends = np.flatnonzero(raw == ord("\n"))
     starts = np.concatenate([[0], ends[:-1] + 1])
     check(bool((raw[starts + k] == ord("\t")).all()), "TSV k-mer column width")
@@ -128,7 +171,14 @@ def parse_tsv_keys(np, codec, data: bytes, k: int):
     vals = np.zeros(starts.shape[0], np.uint64)
     for j in range(k):
         vals = (vals << np.uint64(2)) | codes[:, j].astype(np.uint64)
-    return vals
+    # counts: the digits between the tab and the newline
+    width = ends - (starts + k + 1)
+    counts = np.zeros(starts.shape[0], np.int64)
+    for j in range(int(width.max())):
+        live = width > j
+        digit = raw[(starts + k + 1 + j)[live]].astype(np.int64) - ord("0")
+        counts[live] = counts[live] * 10 + digit
+    return vals, counts
 
 
 # ------------------------------------------------------------- fixtures
@@ -159,14 +209,17 @@ def write_multirecord_fasta(np, path: Path, rng, total: int):
     return records
 
 
-def write_reads_fastq(np, path: Path, rng, gbp: float, read_len: int = 150):
+def write_reads_fastq(np, path: Path, rng, gbp: float, read_len: int = 150, n_sample: int = 20_000):
     """Synthetic E. coli-like FASTQ: reads from both strands of one
     4.64 Mbp random genome, 0.2 % substitutions, N runs in 1 read in 5000.
-    Returns (n_reads, valid 31-mer windows over all reads)."""
+    Returns (n_reads, valid 31-mer windows over all reads, the genome's
+    codes, {read index: read bytes} for a random sample of reads)."""
     k = 31
     genome = rng.integers(0, 4, 4_641_652).astype(np.uint8)
     n_reads = int(gbp * 1e9) // read_len
     lut = np.frombuffer(BASES + b"N", np.uint8)
+    picked = np.random.default_rng(n_reads).choice(n_reads, min(n_sample, n_reads), replace=False)
+    sample = {}
     head_w = 12  # "@r" + 9 digits + "\n"
     row_w = head_w + read_len + 3 + read_len + 1
     valid = 0
@@ -201,21 +254,48 @@ def write_reads_fastq(np, path: Path, rng, gbp: float, read_len: int = 150):
             rows[:, head_w + read_len + 3 : row_w - 1] = ord("I")
             rows[:, row_w - 1] = ord("\n")
             f.write(rows.tobytes())
-    return n_reads, valid
+            for r in picked[(picked >= base) & (picked < base + m)]:
+                sample[int(r)] = rows[r - base, head_w : head_w + read_len].tobytes()
+    return n_reads, valid, genome, sample
+
+
+def write_fasta(path: Path, name: bytes, seq: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(b">" + name + b"\n" + b"\n".join(seq[i : i + 70] for i in range(0, len(seq), 70)) + b"\n")
+
+
+def write_query_reads(np, path: Path, rng, records, n: int = 20_000):
+    """A FASTQ of reads cut from the records (with their N runs and
+    lowercase stretches), random reads, and reads shorter than 21 bp.
+    Returns the reads' sequences."""
+    lut = np.frombuffer(BASES, np.uint8)
+    reads = []
+    for i in range(n):
+        ln = int(rng.integers(5, 150)) if i % 10 == 0 else int(rng.integers(60, 150))
+        if i % 3:
+            rec = records[int(rng.integers(0, len(records)))]
+            p0 = int(rng.integers(0, len(rec) - ln))
+            reads.append(rec[p0 : p0 + ln])
+        else:
+            reads.append(lut[rng.integers(0, 4, ln)].tobytes())
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@q%d\n%s\n+\n%s\n" % (i, r, b"I" * len(r)) for i, r in enumerate(reads)))
+    return reads
 
 
 # ---------------------------------------------------------------- phases
 
 
 def phase_kernels(np, torch, codec, dev, rng):
-    """Each kernel against its plain version on the card; returns the
-    kernel records (times, errors) for the JSON line."""
+    """Each kernel against its plain version on the card; returns, per
+    kernel, its record for the JSON line: kernel, plain and library times,
+    the bound from the bytes it must move, and the largest error."""
     from orion_kmer_tpu_torch.host import pack_for_transfer
-    from orion_kmer_tpu_torch.ops import compact, extract, merge
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
 
     rec = {}
 
-    # K1: a 2^24-position batch with N runs
+    # K1: a 2^24-position batch with N runs; no library call computes it
     n = 1 << 24
     codes = np.frombuffer(BASES, np.uint8)[rng.integers(0, 4, n)].copy()
     for p in rng.integers(0, n - 30, 2000):
@@ -232,9 +312,10 @@ def phase_kernels(np, torch, codec, dev, rng):
         t_p = median_ms(torch, lambda: extract.extract_keys_plain(L, I, k, n - 7))
         log(f"K1 extract k={k} 2^24 positions: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, n_valid {int(gn)}")
         if k == 31:
-            rec["K1"] = (t_k, t_p)
+            rec["K1"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                             bound_ms=bound_ms(L.numel() * 4 + I.numel() * 4 + n * 8))
     check(err == 0, "K1 agrees with its plain version")
-    rec["K1"] = (*rec["K1"], err)
+    rec["K1"]["max_abs_err"] = err
     torch.cuda.synchronize()
 
     # K2: two sorted 2^24-key forest runs with many duplicates (keys only),
@@ -249,8 +330,11 @@ def phase_kernels(np, torch, codec, dev, rng):
     check(gp is None, "keys-only merge has no payload")
     t_k = median_ms(torch, lambda: merge.merge(a, b))
     t_p = median_ms(torch, lambda: merge.merge_plain(a, b))
-    log(f"K2 merge 2^24 + 2^24 keys: kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-    rec["K2"] = (t_k, t_p)
+    t_l = median_ms(torch, lambda: torch.sort(torch.cat([a, b]), stable=True))
+    t_b = bound_ms((a.numel() + b.numel()) * 16)
+    log(f"K2 merge 2^24 + 2^24 keys: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+        f"library torch.sort(cat, stable) {t_l:.3f} ms, bound {t_b:.4f} ms")
+    rec["K2"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
     ta = torch.unique(sorted_keys(40_000_000, 1 << 40))
     tb = torch.unique(sorted_keys(9_000_000, 1 << 40))
     ca = torch.randint(1, 1000, ta.shape, device=dev)
@@ -260,9 +344,11 @@ def phase_kernels(np, torch, codec, dev, rng):
     err = max(err, max_abs_err(torch, gk, pk), max_abs_err(torch, gp, pp))
     t_k2 = median_ms(torch, lambda: merge.merge(ta, tb, ca, cb))
     t_p2 = median_ms(torch, lambda: merge.merge_plain(ta, tb, ca, cb))
-    log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts: kernel {t_k2:.3f} ms, plain {t_p2:.3f} ms")
+    t_l2 = median_ms(torch, lambda: torch.sort(torch.cat([ta, tb]), stable=True))
+    log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts: kernel {t_k2:.3f} ms, plain {t_p2:.3f} ms, "
+        f"library (keys only) {t_l2:.3f} ms, bound {bound_ms((ta.numel() + tb.numel()) * 32):.4f} ms")
     check(err == 0, "K2 agrees with its plain version")
-    rec["K2"] = (*rec["K2"], err)
+    rec["K2"]["max_abs_err"] = err
     del a, b, ta, tb, ca, cb, gk, gp, pk, pp
     torch.cuda.synchronize()
 
@@ -280,13 +366,38 @@ def phase_kernels(np, torch, codec, dev, rng):
         err = max(err, max_abs_err(torch, g0[:m], p0), max_abs_err(torch, g1[:m], p1))
         t_k = median_ms(torch, lambda: compact.compact([x0, x1], keep))
         t_p = median_ms(torch, lambda: compact.compact_plain([x0, x1], keep))
-        log(f"K3 compact 2^25 x 2 planes density {density}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+        t_l = median_ms(torch, lambda: (x0[keep], x1[keep]))
+        t_b = bound_ms(n * (1 + 16) + m * 16)
+        log(f"K3 compact 2^25 x 2 planes density {density}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"library x[keep] per plane {t_l:.3f} ms, bound {t_b:.4f} ms")
         if density == 0.5:
-            rec["K3"] = (t_k, t_p)
+            rec["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
     check(err == 0, "K3 agrees with its plain version")
-    rec["K3"] = (*rec["K3"], err)
+    rec["K3"]["max_abs_err"] = err
+    del x0, x1, keep
     torch.cuda.synchronize()
-    log(f"launch counters after phase 3: K1 {extract.launches} K2 {merge.launches} K3 {compact.launches}")
+
+    # K4: one block sorts 2^14 and 12289 keys, with duplicates and the
+    # all-ones key that ties with its padding
+    err = 0.0
+    for m in (1 << 14, 12289):
+        keys = torch.randint(-(1 << 62), 1 << 62, (m,), device=dev)
+        keys[: m // 4] = keys[m // 4 : 2 * (m // 4)].clone()
+        keys[0] = (1 << 63) - 1
+        err = max(err, max_abs_err(torch, sort.sort_pairs(keys), sort.sort_pairs_plain(keys)))
+        t_k = median_ms(torch, lambda: sort.sort_pairs(keys), reps=50)
+        t_p = median_ms(torch, lambda: sort.sort_pairs_plain(keys), reps=50)
+        t_l = median_ms(torch, lambda: torch.sort(keys), reps=50)
+        t_b = bound_ms(m * 16)
+        log(f"K4 sort {m} keys: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library torch.sort {t_l:.4f} ms, "
+            f"bound {t_b:.6f} ms")
+        if m == 1 << 14:
+            rec["K4"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
+    check(err == 0, "K4 agrees with its plain version")
+    rec["K4"]["max_abs_err"] = err
+    torch.cuda.synchronize()
+    log(f"launch counters after phase 3: K1 {extract.launches} K2 {merge.launches} "
+        f"K3 {compact.launches} K4 {sort.launches}")
     return rec
 
 
@@ -301,8 +412,40 @@ def run_cli(args, env_extra=None):
         raise RuntimeError(f"CLI {args} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
 
 
+CLASSIFY_TSV_HEADER = (
+    "InputFile\tDatabase\tReference\tTotalKmersInReference\tInputKmersHittingReference\t"
+    "SumDepthMatchedKmers\tAvgDepthMatchedKmers\tProportionInputKmersHittingReference\t"
+    "ReferenceBreadthOfCoverage\n"
+)
+
+
+def check_classify(np, json_path: Path, tsv_path: Path, input_path, db_path, refs, vals, counts):
+    """classify's JSON and TSV against the oracle: per reference (sorted
+    names), the filtered input k-mers (vals, counts) it holds and their
+    depth sum; overall, their union."""
+    lines = [CLASSIFY_TSV_HEADER]
+    n_in = vals.shape[0]
+    in_any = np.zeros(n_in, bool)
+    for name in sorted(refs):
+        total = refs[name].shape[0]
+        hit = np.isin(vals, refs[name])
+        in_any |= hit
+        matched, depth = int(hit.sum()), int(counts[hit].sum())
+        avg = depth / matched if matched else 0.0
+        prop = matched / n_in if n_in else 0.0
+        breadth = matched / total if total else 0.0
+        lines.append(f"{input_path}\t{db_path}\t{name}\t{total}\t{matched}\t{depth}\t{avg:.4f}\t{prop:.4f}\t{breadth:.4f}\n")
+    check(tsv_path.read_text() == "".join(lines), f"classify TSV {tsv_path.name} == oracle")
+    doc = json.loads(json_path.read_text())
+    res = doc["databases_analyzed"][0]
+    check(doc["total_unique_kmers_in_input"] == n_in, "classify input k-mers after the filter")
+    check(res["overall_input_kmers_matched_in_db"] == int(in_any.sum()), "classify overall matched")
+    check(res["overall_sum_depth_of_matched_kmers_in_input"] == int(counts[in_any].sum()), "classify overall depth")
+    return len(lines) - 1
+
+
 def phase_exact(np, codec, work: Path, rng):
-    from orion_kmer_tpu.db import KmerDb
+    from orion_kmer_tpu_torch.db import KmerDb
 
     fa = work / "big.fasta"
     records = write_multirecord_fasta(np, fa, rng, 9_000_000)
@@ -337,6 +480,38 @@ def phase_exact(np, codec, work: Path, rng):
     check(KmerDb.load(db).total_unique_kmers() == ref.total_unique_kmers(), "db reload")
     log(f"build -k 21: {ref.total_unique_kmers()} unique k-mers, byte-exact")
 
+    # the joins on the same DB
+    union = ref.get_all_kmers_unified()
+    small_db = work / "small.db"
+    run_cli(["build", "-k", 21, "-g", small, "-o", small_db])
+    for other, other_set in ((db, union), (small_db, ref.references["small.fasta"])):
+        out = work / "cmp.json"
+        run_cli(["compare", "--db1", db, "--db2", other, "-o", out])
+        got = json.loads(out.read_text())
+        inter = int(np.intersect1d(union, other_set).shape[0])
+        u = union.shape[0] + other_set.shape[0] - inter
+        check(got["intersection_size"] == inter and got["union_size"] == u and got["jaccard_index"] == inter / u,
+              f"compare with {other.name} == np.intersect1d")
+        log(f"compare db.db {other.name}: intersection {inter}, union {u}, exact")
+
+    fq = work / "q.fastq"
+    reads = write_query_reads(np, fq, rng, records)
+    hits = window_hits(np, codec, reads, 21, union)
+    for c in (1, 5):
+        out = work / f"q{c}.txt"
+        run_cli(["query", "-d", db, "-r", fq, "-o", out, "-c", c])
+        exp = b"".join(b"q%d\n" % i for i, (r, h) in enumerate(zip(reads, hits.tolist())) if h >= c and len(r) >= 21)
+        check(out.read_bytes() == exp, f"query -c {c} == oracle")
+        n_hit = exp.count(b"\n")
+        log(f"query -c {c}: {n_hit} of {len(reads)} reads, exact")
+
+    out, tsv = work / "cl.json", work / "cl.tsv"
+    run_cli(["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
+    vals, counts = oracle_counts(np, codec, reads, 21)
+    keep = counts >= 2
+    n_refs = check_classify(np, out, tsv, fq, db, ref.references, vals[keep], counts[keep])
+    log(f"classify -m 2: {int(keep.sum())} input k-mers, {n_refs} references, exact")
+
 
 def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     from orion_kmer_tpu_torch import cli
@@ -344,7 +519,7 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
 
     fq = work / "reads.fastq"
     t0 = time.monotonic()
-    n_reads, n_windows = write_reads_fastq(np, fq, rng, gbp)
+    n_reads, n_windows, genome, read_sample = write_reads_fastq(np, fq, rng, gbp)
     log(f"realistic run: {n_reads} reads x 150 bp ({fq.stat().st_size} bytes), "
         f"{n_windows} valid 31-mer windows, generated in {time.monotonic() - t0:.1f} s")
     out, hist = work / "reads.tsv", work / "reads.hist"
@@ -362,7 +537,7 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
 
     h = np.loadtxt(hist, dtype=np.int64, ndmin=2)
     check(int((h[:, 0] * h[:, 1]).sum()) == n_windows, "histogram mass == valid windows")
-    vals = parse_tsv_keys(np, codec, out.read_bytes(), 31)
+    vals = parse_tsv(np, codec, out.read_bytes(), 31)[0]
     check(vals.shape[0] == int(h[h[:, 0] >= 2, 1].sum()), "TSV lines == k-mers with count >= 2")
     check(bool((vals[1:] > vals[:-1]).all()), "output keys strictly ascending")
     sample = vals[rng.choice(vals.shape[0], min(100_000, vals.shape[0]), replace=False)]
@@ -373,7 +548,106 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     log(f"launches in the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} launched in the main path")
-    return launches
+    return launches, fq, out, n_reads, n_windows, genome, read_sample
+
+
+def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample):
+    """The realistic joins, each command in process with the launch
+    counters zeroed just before it; returns the launches of each run."""
+    from orion_kmer_tpu_torch import cli, engine
+    from orion_kmer_tpu_torch.db import KmerDb
+    from orion_kmer_tpu_torch.keys import keys_from_u64, u64_from_keys
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+
+    k = 31
+    kernels = {"K1": extract, "K2": merge, "K3": compact, "K4": sort}
+
+    def drive(argv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for mod in kernels.values():
+            mod.launches = 0
+        t0 = time.monotonic()
+        rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        check(rc == 0, f"{argv[0]} exit code")
+        return wall, {name: mod.launches for name, mod in kernels.items()}, torch.cuda.max_memory_allocated(dev)
+
+    def report(what, wall, launches, peak, extra=""):
+        log(f"{what}: wall {wall:.3f} s{extra}, peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
+
+    lut = np.frombuffer(BASES, np.uint8)
+    g_b = genome.copy()
+    subs = rng.random(g_b.shape[0]) < 0.01
+    g_b[subs] = (g_b[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+    g_c = rng.integers(0, 4, 5_000_000).astype(np.uint8)
+    refs, paths = {}, []
+    for name, g in (("genomeA.fa", genome), ("genomeB.fa", g_b), ("genomeC.fa", g_c)):
+        write_fasta(work / name, name.encode(), lut[g].tobytes())
+        paths.append(work / name)
+        refs[name] = sorted_unique(np, codec.extract_kmers_np(g, k))
+    union = sorted_unique(np, np.concatenate(list(refs.values())))
+    runs = {}
+
+    db = work / "refs.db"
+    wall, launches, peak = drive(["build", "-k", k, "-g", *paths, "-o", db])
+    got = KmerDb.load(db).references
+    check(sorted(got) == sorted(refs) and all(np.array_equal(got[n], refs[n]) for n in refs), "build -k 31 == oracle")
+    report(f"build -k 31 of 3 references ({union.shape[0]} unique 31-mers)", wall, launches, peak)
+    runs["build"] = launches
+
+    ids = work / "ids.txt"
+    wall, launches, peak = drive(["query", "-d", db, "-r", fq, "-o", ids, "-c", 10])
+    # the per-read hit counts under the run (same batches): every read's
+    # against the ids written, the sampled reads' exactly against the oracle
+    all_ids, _, all_hits = engine.query_hits(union, fq, k, dev)
+    check(ids.read_bytes() == b"".join(i + b"\n" for i, h in zip(all_ids, all_hits.tolist()) if h >= 10),
+          "query -c 10 ids == reads with >= 10 hits")
+    picked = sorted(sample)
+    hits = window_hits(np, codec, [sample[i] for i in picked], k, union)
+    check(all_hits.shape[0] == n_reads and np.array_equal(all_hits[picked], hits),
+          f"query hits == oracle on {len(picked)} sampled reads")
+    q = np.percentile(hits, [0, 1, 50, 100]).tolist()
+    report(f"query -c 10 ({int((all_hits >= 10).sum())} of {n_reads} reads reported; hit counts of "
+           f"{len(picked)} sampled reads exact, min/1st pct/median/max {q})", wall, launches, peak,
+           f", {n_windows / wall / 1e6:.3f} M windows/s")
+    runs["query"] = launches
+
+    out, tsv = work / "cl.json", work / "cl.tsv"
+    wall, launches, peak = drive(["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
+    vals, counts = parse_tsv(np, codec, count_tsv.read_bytes(), k)
+    check_classify(np, out, tsv, fq, db, refs, vals, counts)
+    report(f"classify -m 2 ({vals.shape[0]} input k-mers, exact)", wall, launches, peak)
+    runs["classify"] = launches
+
+    db2, cmp_out = work / "ab.db", work / "cmp.json"
+    check(cli.main(["build", "-k", str(k), "-g", str(paths[0]), str(paths[1]), "-o", str(db2)]) == 0, "build A B")
+    wall, launches, peak = drive(["compare", "--db1", db, "--db2", db2, "-o", cmp_out])
+    u2 = sorted_unique(np, np.concatenate([refs["genomeA.fa"], refs["genomeB.fa"]]))
+    inter = int(np.intersect1d(union, u2).shape[0])
+    got = json.loads(cmp_out.read_text())
+    check(got["intersection_size"] == inter and got["union_size"] == union.shape[0] + u2.shape[0] - inter,
+          "compare == np.intersect1d")
+    report(f"compare ({inter} shared 31-mers, exact)", wall, launches, peak)
+    runs["compare"] = launches
+
+    for what in ("query", "classify", "compare"):
+        check(runs[what]["K2"] > 0, f"K2 launched in {what}")
+    check(runs["query"]["K1"] > 0, "K1 launched in query")
+
+    # K4's own path: no command reaches it, so drive its entry, sort_pairs,
+    # on canonical 31-mers of the reads
+    for mod in kernels.values():
+        mod.launches = 0
+    vals = np.concatenate([codec.extract_kmers_np(codec.seq_to_codes(sample[i]), k) for i in picked[:200]])
+    for m in (1 << 14, 12289):
+        got = u64_from_keys(sort.sort_pairs(keys_from_u64(vals[:m]).to(dev)))
+        check(np.array_equal(got, np.sort(vals[:m])), f"sort_pairs of {m} keys == np.sort")
+    runs["sort_pairs"] = {name: mod.launches for name, mod in kernels.items()}
+    log(f"sort_pairs entry: launches {runs['sort_pairs']}")
+    check(runs["sort_pairs"]["K4"] == 2, "K4 launched by its entry")
+    return runs
 
 
 def main() -> int:
@@ -391,14 +665,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from orion_kmer_tpu import codec
-    from orion_kmer_tpu.ingest import native
-    from orion_kmer_tpu_torch import _kernels
+    from orion_kmer_tpu_torch import _kernels, codec
+    from orion_kmer_tpu_torch.ingest import native
 
     dev = torch.device("cuda")
     card = gpu_name_and_limit()
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-        f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}; "
         f"native ingest available: {native.available()}")
 
     t0 = time.monotonic()
@@ -417,24 +690,35 @@ def main() -> int:
     try:
         phase_exact(np, codec, work, rng)
         log("phase 4 exact run: passed")
-        launches = phase_realistic(np, torch, codec, work, rng, args.gbp, dev)
+        launches, fq, count_tsv, n_reads, n_windows, genome, sample = phase_realistic(
+            np, torch, codec, work, rng, args.gbp, dev
+        )
         log("phase 5 realistic run: passed")
+        runs = phase_joins(np, torch, codec, work, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample)
+        log("phase 6 realistic joins: passed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # launches: K1-K3 summed over the command runs of phases 5 and 6; K4,
+    # which no command reaches, from its entry's run
+    runs["count"] = launches
+    total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3")}
+    total["K4"] = runs["sort_pairs"]["K4"]
     pkg = "orion_kmer_tpu_torch/csrc"
     kernels = [
         ("K1 extract", f"{pkg}/extract.cu", "orion_kmer_tpu/ops/kmers_pallas.py:29"),
         ("K2 merge", f"{pkg}/merge.cu", "orion_kmer_tpu/ops/sort_pallas.py:222"),
         ("K3 compact", f"{pkg}/compact.cu", "orion_kmer_tpu/ops/sort_pallas.py:463"),
+        ("K4 sort", f"{pkg}/sort.cu", "orion_kmer_tpu/ops/sort_pallas.py:153"),
     ]
     out = []
     for name, source, replaces in kernels:
         key = name.split()[0]
-        t_k, t_p, err = rec[key]
+        r = rec[key]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "launches": total[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"],
         })
     log(card)
     log(json.dumps({"kernels": out}))

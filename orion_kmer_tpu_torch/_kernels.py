@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  The
-build happens once, at first use, into
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  The build
+happens once, at first use, into
 ``build/okt_torch_kernels/<hash of the sources>/`` at the repository root,
 from the sources in the repository and nothing else.  Importing this
 module builds nothing: the CPU path never calls ``lib()``.
@@ -29,7 +30,7 @@ _SRC_DIR = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "okt_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "okt_compact_blocks": (_I, [_I]),
     "okt_compact_count": (ctypes.c_int, [_P, _I, _P, _P]),
     "okt_compact_scatter": (ctypes.c_int, [_P, _I, _P, _P, _P, _P, _P, _P]),
+    "okt_sort_max_n": (_I, []),
+    "okt_sort": (ctypes.c_int, [_P, _I, _P, _P]),
     "okt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -75,13 +78,28 @@ def _build() -> Path:
     if so_path.exists():
         return so_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libokt_torch_kernels.{os.getpid()}.tmp"
-    cus = [str(s) for s in srcs if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    logger.info("Building CUDA kernels: %s", " ".join(cmd))
+    tag = os.getpid()
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        logger.info("Building CUDA kernels: %s", " ".join(cmd))
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {obj.name}:\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"libokt_torch_kernels.{tag}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    for obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, so_path)
     return so_path
 

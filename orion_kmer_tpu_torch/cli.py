@@ -1,4 +1,5 @@
-"""Command-line interface of the port: ``count`` and ``build``.
+"""Command-line interface of the port: ``count``, ``build``, ``compare``,
+``query`` and ``classify``.
 
 The same flags, help, ``-t``/``-v`` and error rendering as
 ``orion_kmer_tpu/cli.py`` (which mirrors the reference clap CLI,
@@ -6,8 +7,9 @@ orion-kmer/src/cli.rs, and main.rs:7-16: log the outermost error, exit
 1).  The other subcommands of the JAX package are not ported yet, so
 argparse rejects them (exit 2).
 
-The device is resolved once: ``cuda`` when ``torch.cuda.is_available()``,
-else ``cpu``.
+``--device`` picks where the work runs: ``cuda`` (the default) or
+``cpu``.  Without a visible card the default fails with one error line
+and exit 1; the port never moves to the CPU unless asked.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ import logging
 import os
 import sys
 
-from orion_kmer_tpu.errors import OrionKmerError
-from orion_kmer_tpu.utils import get_num_threads, setup_logging
-from orion_kmer_tpu.version import __version__
+from .errors import OrionKmerError
+from .utils import get_num_threads, setup_logging
+from .version import __version__
 
 logger = logging.getLogger("orion_kmer_tpu_torch")
 
@@ -50,6 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="DIR",
         help="Write a torch.profiler trace of the run to this directory",
+    )
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="Where the k-mer work runs (default: cuda; fails without a card)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -104,14 +112,75 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="Optional: checkpoint file for resumable multi-genome builds",
     )
+
+    # compare (cli.rs:80-95)
+    cp = sub.add_parser("compare", help="Compare two k-mer databases")
+    cp.add_argument("--db1", required=True, help="First k-mer database file")
+    cp.add_argument("--db2", required=True, help="Second k-mer database file")
+    cp.add_argument(
+        "-o", "--output-file", required=True, help="Output file for comparison stats (JSON)"
+    )
+
+    # query (cli.rs:97-130)
+    q = sub.add_parser("query", help="Query short reads against a k-mer database")
+    q.add_argument(
+        "-d", "--database", dest="database_file", required=True, help="K-mer database"
+    )
+    q.add_argument(
+        "-r", "--reads", dest="reads_file", required=True, help="Short-read file (FASTQ)"
+    )
+    q.add_argument(
+        "-o", "--output-file", required=True, help="Output file for matching read IDs"
+    )
+    q.add_argument(
+        "-c",
+        "--min-hits",
+        type=int,
+        default=1,
+        help="Minimum number of k-mer hits to report a read",
+    )
+
+    # classify (cli.rs:132-185)
+    cl = sub.add_parser(
+        "classify",
+        help="Classify sequences against k-mer databases and report coverage statistics",
+    )
+    cl.add_argument("-i", "--input-file", required=True, help="Input FASTA/FASTQ file")
+    cl.add_argument(
+        "-d",
+        "--databases",
+        dest="database_files",
+        nargs="+",
+        action="extend",
+        required=True,
+        help="One or more k-mer database files (.db)",
+    )
+    cl.add_argument(
+        "-o", "--output-file", required=True, help="Output file for classification JSON"
+    )
+    cl.add_argument(
+        "-k",
+        "--kmer-size",
+        type=int,
+        default=None,
+        help="Optional k-mer size to validate against databases",
+    )
+    cl.add_argument(
+        "--min-kmer-frequency",
+        type=int,
+        default=1,
+        help="Minimum input k-mer frequency for depth calculation",
+    )
+    cl.add_argument(
+        "--min-coverage",
+        type=float,
+        default=0.0,
+        help="Minimum reference breadth of coverage to include a reference",
+    )
+    cl.add_argument(
+        "--output-tsv", default=None, help="Optional TSV summary output path"
+    )
     return p
-
-
-def resolve_device():
-    """``cuda`` when a card is visible, else ``cpu``."""
-    import torch
-
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 @contextlib.contextmanager
@@ -137,11 +206,27 @@ def main(argv=None) -> int:
     # prefetch queue through ORION_KMER_THREADS
     os.environ["ORION_KMER_THREADS"] = str(get_num_threads(args.threads))
 
-    from .commands import build, count
+    import torch
 
-    dispatch = {"count": count.run_count, "build": build.run_build}
-    device = resolve_device()
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print(
+            "[ERROR orion_kmer_tpu] Error: no CUDA device is available "
+            "(pass --device cpu to run on the CPU)",
+            file=sys.stderr,
+        )
+        return 1
+    device = torch.device(args.device)
     logger.info("Device: %s", device)
+
+    from .commands import build, classify, compare, count, query
+
+    dispatch = {
+        "count": count.run_count,
+        "build": build.run_build,
+        "compare": compare.run_compare,
+        "query": query.run_query,
+        "classify": classify.run_classify,
+    }
     try:
         ctx = _profiled(args.trace, device) if args.trace else contextlib.nullcontext()
         with ctx:

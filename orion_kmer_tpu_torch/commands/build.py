@@ -3,8 +3,8 @@
 The port of ``orion_kmer_tpu/commands/build.py`` (parity target:
 orion-kmer ``build``, commands/build.rs:80-160), wired to the port's
 ``count_file``.  Reference name = input file basename including
-extensions; the DB is serialized bincode-compatibly by the reused
-``orion_kmer_tpu.db`` and compressed by output extension.
+extensions; the DB is serialized bincode-compatibly by ``db.py`` and
+compressed by output extension.
 """
 
 from __future__ import annotations
@@ -14,12 +14,11 @@ import os
 
 import numpy as np
 
-from orion_kmer_tpu.db import KmerDb
-from orion_kmer_tpu.errors import ContextError, validate_k
-from orion_kmer_tpu.ingest.fastx import FastxParseError
-from orion_kmer_tpu.utils import track_progress_and_resources
-
+from ..db import KmerDb
 from ..engine import count_file
+from ..errors import ContextError, validate_k
+from ..ingest.fastx import FastxParseError
+from ..utils import track_progress_and_resources
 
 logger = logging.getLogger("orion_kmer_tpu_torch.build")
 

@@ -13,14 +13,14 @@ import os
 
 import numpy as np
 
-from orion_kmer_tpu import codec
-from orion_kmer_tpu.errors import ContextError, validate_k
-from orion_kmer_tpu.ingest.compress import TextOut
-from orion_kmer_tpu.ingest.fastx import FastxParseError
-from orion_kmer_tpu.utils import track_progress_and_resources
-
+from .. import codec
 from ..engine import count_file
+from ..errors import ContextError, validate_k
 from ..host import CountAccumulator
+from ..ingest import native
+from ..ingest.compress import TextOut
+from ..ingest.fastx import FastxParseError
+from ..utils import track_progress_and_resources
 
 logger = logging.getLogger("orion_kmer_tpu_torch.count")
 
@@ -28,8 +28,6 @@ logger = logging.getLogger("orion_kmer_tpu_torch.count")
 def write_counts_tsv(path, vals: np.ndarray, counts: np.ndarray, k: int) -> None:
     """Write sorted ``kmer\\tcount`` lines (count.rs:127-135): the native
     renderer when available, chunked so the buffer stays bounded."""
-    from orion_kmer_tpu.ingest import native
-
     with TextOut(path) as f:
         if native.available():
             f.flush()  # nothing buffered yet; keep text/binary ordering safe

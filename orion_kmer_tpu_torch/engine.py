@@ -1,7 +1,11 @@
-"""Batched host -> device count pipeline on one device.
+"""Batched host -> device pipelines on one device: counting and the set
+joins.
 
 The torch counterpart of ``orion_kmer_tpu/engine.py``'s
-``DeviceCountTable``, ``count_file`` and ``unique_from_file``.  The host
+``DeviceCountTable``, ``count_file``, ``unique_from_file``,
+``query_file``/``query_records``, ``ClassifyJoiner`` and
+``intersection_size_host``, plus ``query_hits``, the per-read hit counts
+under ``query_file``.  For counting, the host
 packs FASTA/FASTQ records into wire-format batches on a prefetch thread
 (``host.py``) and stages them to the device; the device extracts and
 sorts each batch into a raw run of canonical keys, accumulates runs in an
@@ -19,20 +23,28 @@ from __future__ import annotations
 import logging
 import os
 import time
+from typing import Iterable
 
 import numpy as np
 import torch
 
+from .errors import ContextError
 from .host import (
     CountAccumulator,
     _bucket,
     _prefetch,
     default_batch,
+    iter_packed_batches,
     pack_for_transfer,
     stream_file_batches,
+    stream_native_chunks,
 )
-from .keys import u64_from_keys
+from .ingest import native
+from .ingest.fastx import FastxParseError, Record, parse_fastx_file
+from .keys import keys_from_u64, u64_from_keys
+from .ops import setops
 from .ops.count import combine_sorted_unique, merge_runs, rle_sorted, sort_canonical_packed
+from .ops.extract import extract_keys
 
 logger = logging.getLogger("orion_kmer_tpu_torch.engine")
 
@@ -176,3 +188,169 @@ def unique_from_file(path, k: int, device) -> np.ndarray:
     """Unique canonical k-mers of one genome file (build.rs:23-78)."""
     vals, _ = count_file(path, k, device)
     return vals
+
+
+def _db_on_device(db_vals: np.ndarray, device) -> torch.Tensor:
+    """Sorted unique u64 values -> flipped int64 keys on ``device``."""
+    return keys_from_u64(db_vals).to(device)
+
+
+def _batch_hits(piece: np.ndarray, starts: np.ndarray, db_keys, k: int, device) -> np.ndarray:
+    """Per-record window hits of one query batch.
+
+    piece: 2-bit codes (255 = invalid) of the batch; starts: ascending
+    batch-local start of each record's region (a record's region runs to
+    the next start, its separator included; the first may be negative
+    when the record began in an earlier batch).  The windows are
+    extracted (K1) in position order, sorted with their positions, and
+    the valid prefix -- invalid windows hold SENTINEL_KEY, which no
+    canonical k-mer equals -- is joined with the DB (K2); the hits of a
+    record are a difference of prefix sums over the member positions."""
+    n = piece.shape[0]
+    size = -(-n // 32) * 32
+    lanes, inv_words = pack_for_transfer(piece, size)
+    keys, n_valid = extract_keys(
+        to_device(lanes, device), to_device(inv_words, device), k, n
+    )
+    skeys, order = torch.sort(keys)
+    m = int(n_valid)
+    member = setops.member_positions(db_keys, skeys[:m], order[:m], size)
+    prefix = torch.zeros(size + 1, dtype=torch.int64, device=device)
+    torch.cumsum(member, 0, out=prefix[1:])
+    lo = torch.from_numpy(np.maximum(starts, 0).astype(np.int64)).to(device)
+    hi = torch.cat([lo[1:], lo.new_full((1,), size)])
+    return (prefix[hi] - prefix[lo]).cpu().numpy()
+
+
+def _records_hits(db_keys, records: list[Record], k: int, device) -> np.ndarray:
+    """Per-record window hits of parsed records (raw bytes, no
+    normalization), in memory."""
+    hits = np.zeros(len(records), dtype=np.int64)
+    for pb in iter_packed_batches(
+        records, k, normalize=False, batch_positions=default_batch(device), with_owner=True
+    ):
+        nr = len(pb.record_ids)
+        starts = np.searchsorted(pb.owner, np.arange(nr))
+        np.add.at(hits, pb.first_rid + np.arange(nr), _batch_hits(pb.codes, starts, db_keys, k, device))
+    return hits
+
+
+def _passing(ids, lens, hits: np.ndarray, k: int, min_hits: int) -> list[bytes]:
+    """IDs of reads with >= min_hits hits; reads shorter than k never match."""
+    return [i for i, n, h in zip(ids, lens, hits.tolist()) if h >= min_hits and n >= k]
+
+
+def query_records(
+    db_vals: np.ndarray, records: Iterable[Record], k: int, min_hits: int, device
+) -> list[bytes]:
+    """IDs of reads with >= min_hits matching windows (multiplicity
+    counted, query.rs:87-103), in input order; reads shorter than k never
+    match.  Raw read bytes: no normalization (query.rs:80-81).  The path
+    for when the native parser is unavailable."""
+    device = torch.device(device)
+    records = list(records)
+    hits = _records_hits(_db_on_device(db_vals, device), records, k, device)
+    return _passing([r.id for r in records], [len(r.seq) for r in records], hits, k, min_hits)
+
+
+def query_hits(
+    db_vals: np.ndarray, path, k: int, device
+) -> tuple[list[bytes], list[int], np.ndarray]:
+    """(ids, lengths, window hits) of every read of a file, in input
+    order.  Streamed: chunked native parse into a rolling buffer of
+    uniform batches with a (k-1) halo at each cut, so every window is
+    joined exactly once and memory is O(chunk)."""
+    device = torch.device(device)
+    db_keys = _db_on_device(db_vals, device)
+    if not native.available():
+        records = list(parse_fastx_file(path))
+        hits = _records_hits(db_keys, records, k, device)
+        return [r.id for r in records], [len(r.seq) for r in records], hits
+    B = default_batch(device)
+    sep = k - 1
+    all_ids: list[bytes] = []
+    all_lens: list[int] = []
+    hits = np.zeros(1024, dtype=np.int64)  # grown geometrically below
+    # rolling coordinates relative to buf[0]: each record keeps (start,
+    # region end, id); a start goes negative once its record spans a cut
+    buf = np.empty(0, np.uint8)
+    bstarts = np.empty(0, np.int64)
+    bends = np.empty(0, np.int64)
+    brids = np.empty(0, np.int64)
+    try:
+        for codes, rec_ends, ids in stream_native_chunks(path, k, normalize=False):
+            base = buf.shape[0]
+            starts = np.concatenate([[0], rec_ends[:-1] + sep])
+            rid_base = len(all_ids)
+            all_ids.extend(ids)
+            all_lens.extend((rec_ends - starts).tolist())
+            if len(all_ids) > hits.shape[0]:
+                hits = np.concatenate([hits, np.zeros(max(hits.shape[0], len(all_ids)), np.int64)])
+            buf = np.concatenate([buf, codes]) if base else codes
+            bstarts = np.concatenate([bstarts, base + starts])
+            bends = np.concatenate([bends, base + rec_ends + sep])
+            brids = np.concatenate([brids, rid_base + np.arange(len(ids), dtype=np.int64)])
+            while buf.shape[0] >= B:
+                mask = bstarts < B
+                np.add.at(hits, brids[mask], _batch_hits(buf[:B], bstarts[mask], db_keys, k, device))
+                cut = B - sep  # halo: the windows at the cut run in the next batch
+                buf = buf[cut:]
+                keep = bends > cut
+                bstarts, bends, brids = bstarts[keep] - cut, bends[keep] - cut, brids[keep]
+        if buf.shape[0]:
+            np.add.at(hits, brids, _batch_hits(buf, bstarts, db_keys, k, device))
+    except native.NativeParseError as e:
+        raise FastxParseError(str(e)) from e
+    except ContextError as e:
+        raise FastxParseError(f"Failed to get input reader for file: {path}", e) from e
+    return all_ids, all_lens, hits[: len(all_ids)]
+
+
+def query_file(db_vals: np.ndarray, path, k: int, min_hits: int, device) -> list[bytes]:
+    """``query_records`` over a file, streamed through ``query_hits``."""
+    return _passing(*query_hits(db_vals, path, k, device), k, min_hits)
+
+
+class ClassifyJoiner:
+    """Classify joins of reference sets against ONE input count table
+    (classify.rs:224-236): the table goes to the device once, and each
+    join() takes the concatenated k-mers of many references and answers
+    membership both ways with one merge (``setops.classify_join``).
+
+    Depth sums stay on the host and int64-exact: a matched reference
+    k-mer IS an input k-mer, so its count is found by one searchsorted
+    into the sorted input table."""
+
+    # One join covers up to this many concatenated reference k-mers;
+    # larger databases are chunked at reference boundaries.
+    MAX_JOIN = 1 << 24
+
+    def __init__(self, input_vals: np.ndarray, input_counts: np.ndarray, device):
+        self.vals = input_vals
+        self.counts = input_counts
+        self._n = int(input_vals.shape[0])
+        self._keys = _db_on_device(input_vals, torch.device(device))
+
+    def join(self, ref_vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Member masks (over ref_vals, over the input table)."""
+        nq = int(ref_vals.shape[0])
+        if self._n == 0 or nq == 0:
+            return np.zeros(nq, dtype=bool), np.zeros(self._n, dtype=bool)
+        q = keys_from_u64(ref_vals).to(self._keys.device)
+        member_q, member_db = setops.classify_join(q, self._keys)
+        return member_q.cpu().numpy(), member_db.cpu().numpy()
+
+    def depth_of(self, matched_vals: np.ndarray) -> int:
+        """Summed input counts of matched k-mers, int64-exact
+        (classify.rs:230-236 sum_depth)."""
+        if matched_vals.shape[0] == 0:
+            return 0
+        idx = np.searchsorted(self.vals, matched_vals)
+        return int(self.counts[idx].sum())
+
+
+def intersection_size_host(a: np.ndarray, b: np.ndarray, device) -> int:
+    """Exact |A intersect B| of two sorted unique u64 sets by one merge
+    on ``device`` (compare.rs:58).  Either side may be empty."""
+    device = torch.device(device)
+    return int(setops.intersection_size(_db_on_device(a, device), _db_on_device(b, device)))

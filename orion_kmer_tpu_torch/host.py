@@ -18,9 +18,12 @@ from typing import Iterable, Iterator, NamedTuple
 
 import numpy as np
 
-from orion_kmer_tpu import codec
-from orion_kmer_tpu.errors import ContextError
-from orion_kmer_tpu.ingest.fastx import Record, parse_fastx_file
+from . import codec
+from .errors import ContextError
+from .ingest import native
+from .ingest.compress import open_input
+from .ingest.fastx import FastxParseError, Record, parse_fastx_file
+from .utils.progress import worker_threads
 
 _MIN_BUCKET = 4096
 
@@ -56,8 +59,6 @@ def pack_for_transfer(codes: np.ndarray, size: int):
     C packer when available."""
     if size % 32:
         raise ValueError(f"wire size must be a multiple of 32, got {size}")
-    from orion_kmer_tpu.ingest import native
-
     if native.available():
         return native.pack_wire(codes, size)
     codes_p = _pad(codes, size, codec.INVALID_CODE)
@@ -210,9 +211,6 @@ def stream_native_chunks(
     (codes, rec_ends, ids) tuples of WHOLE records; a record spanning a
     chunk boundary is carried over (so one yield can exceed chunk_bytes
     only by the unfinished record's length)."""
-    from orion_kmer_tpu.ingest import native
-    from orion_kmer_tpu.ingest.compress import open_input
-
     if chunk_bytes is None:
         chunk_bytes = CHUNK_BYTES
     src = str(path)
@@ -291,9 +289,6 @@ def stream_file_batches(
     available (one pass, zero Python per record, O(chunk) memory), else
     the line-streaming Python parser (O(record) memory)."""
     batch_positions = batch_positions or default_batch()
-    from orion_kmer_tpu.ingest import native
-    from orion_kmer_tpu.ingest.fastx import FastxParseError
-
     native_err = native.NativeParseError  # bind before the generator loop
     if native.available():
         try:
@@ -337,8 +332,6 @@ def _merge_sorted_unique_runs(v1, c1, v2, c2):
         return v2, c2
     if n2 == 0:
         return v1, c1
-    from orion_kmer_tpu.ingest import native
-
     if native.available():
         return native.merge_unique(v1, c1, v2, c2)
     out_v = np.empty(n1 + n2, dtype=v1.dtype)
@@ -387,8 +380,6 @@ class CountAccumulator:
                 self._consolidate()
 
     def _merge_all(self) -> tuple[np.ndarray, np.ndarray]:
-        from orion_kmer_tpu.ingest import native
-
         if 1 < len(self._vals) <= native.MAX_KWAY and native.available():
             # one native pass, one output allocation
             return native.merge_unique_kway(self._vals, self._counts)
@@ -420,8 +411,6 @@ def _prefetch(iterator, depth: int | None = None):
     import threading
 
     if depth is None:
-        from orion_kmer_tpu.utils.progress import worker_threads
-
         depth = max(2, worker_threads(default=2))
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     _END = object()

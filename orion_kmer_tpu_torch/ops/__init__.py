@@ -1,5 +1,6 @@
 """Device ops of the port: extraction (K1), run merge (K2), compaction
-(K3), and the count pipeline built from them (``count.py``).
+(K3), block sort (K4), and what is built from them: the count pipeline
+(``count.py``) and the set joins (``setops.py``).
 
 Each kernel module holds the wrapper, its plain PyTorch version and a
 launch counter.  The wrapper takes the plain version only for CPU

@@ -39,10 +39,12 @@ def merge(a, b, pa=None, pb=None):
         return merge_plain(a, b, pa, pb)
     _kernels.require_cuda("merge", *operands)
     global launches
-    lib = _kernels.lib()
     na, nb = a.shape[0], b.shape[0]
     out = torch.empty(na + nb, dtype=torch.int64, device=a.device)
     pout = torch.empty_like(out) if pa is not None else None
+    if na + nb == 0:
+        return out, pout  # nothing to merge, nothing to launch
+    lib = _kernels.lib()
     split = torch.empty(
         lib.okt_merge_scratch(na + nb), dtype=torch.int64, device=a.device
     )

@@ -36,10 +36,15 @@ def _random_fasta(seed, n_records, length):
     return "".join(recs)
 
 
+def port_cpu(argv):
+    """The port's CLI on the CPU (its default device is the card)."""
+    return port_main(["--device", "cpu", *argv])
+
+
 def _run_both(tmp_path, argv_of):
     """Run argv_of(out_dir) through both CLIs; returns the two out dirs."""
     outs = []
-    for name, main in (("jax", jax_main), ("port", port_main)):
+    for name, main in (("jax", jax_main), ("port", port_cpu)):
         d = tmp_path / name
         d.mkdir()
         assert main(argv_of(d)) == 0
@@ -99,7 +104,7 @@ def test_checkpoint_resume_matches_jax(tmp_path, command):
     a, b = _run_both(tmp_path, argv)  # writes the checkpoints
     for d in (a, b):
         (d / "out").unlink()
-    for d, main in ((a, jax_main), (b, port_main)):
+    for d, main in ((a, jax_main), (b, port_cpu)):
         assert main(argv(d)) == 0  # resumes: every file already done
     assert (a / "out").read_bytes() == (b / "out").read_bytes()
 
@@ -107,7 +112,7 @@ def test_checkpoint_resume_matches_jax(tmp_path, command):
 def test_trace_writes_a_profile(tmp_path):
     f = write_file(tmp_path / "a.fa", SAMPLE1_FASTA)
     trace = tmp_path / "trace"
-    assert port_main(["--trace", trace, "count", "-k", 5, "-i", f, "-o", tmp_path / "o.tsv"]) == 0
+    assert port_cpu(["--trace", trace, "count", "-k", 5, "-i", f, "-o", tmp_path / "o.tsv"]) == 0
     assert list(trace.glob("trace.*.json"))
 
 
@@ -121,7 +126,7 @@ def test_count_t40_k32_edge(tmp_path):
 def test_count_bad_k_error_path(tmp_path, capsys):
     f = write_file(tmp_path / "a.fa", SAMPLE1_FASTA)
     errs = []
-    for main in (jax_main, port_main):
+    for main in (jax_main, port_cpu):
         assert main(["count", "-k", "33", "-i", str(f), "-o", str(tmp_path / "o.tsv")]) == 1
         errs.append(capsys.readouterr().err)
     assert errs[0] == errs[1]
@@ -130,7 +135,7 @@ def test_count_bad_k_error_path(tmp_path, capsys):
 
 def test_unported_subcommand_exits_2(tmp_path):
     with pytest.raises(SystemExit) as e:
-        port_main(["compare", "--db1", "a", "--db2", "b", "-o", str(tmp_path / "x")])
+        port_cpu(["profile", "-k", "5", "--manifest", "m.json", "-o", str(tmp_path / "x")])
     assert e.value.code == 2
 
 
@@ -170,7 +175,7 @@ def test_count_deep_forest_and_spills(tmp_path, monkeypatch, flush_windows):
     monkeypatch.setattr(engine.DeviceCountTable, "_spill", spill)
     monkeypatch.setattr(engine, "merge_runs", merge_runs)
     b = tmp_path / "port.tsv"
-    assert port_main(["count", "-k", 21, "-i", f, "-o", b]) == 0
+    assert port_cpu(["count", "-k", 21, "-i", f, "-o", b]) == 0
     assert calls["spill"] >= 2
     if flush_windows > 8192:
         assert calls["merge"] >= 7  # 8 batches per flush fold 3 levels deep

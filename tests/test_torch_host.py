@@ -1,6 +1,7 @@
 """The port's host pipeline (orion_kmer_tpu_torch.host) against the
 engine.py functions it copies: byte-equal batches, halos, rebatching,
-wire packing and host accumulation on the tests/util.py fixtures."""
+wire packing and host accumulation on the tests/util.py fixtures; and
+the port's own copies of codec, db and ingest against their originals."""
 
 import numpy as np
 import pytest
@@ -141,3 +142,80 @@ def test_default_batch(monkeypatch):
     assert host.default_batch(torch.device("cuda")) == 1 << 24
     monkeypatch.setenv("ORION_KMER_BATCH", "8192")
     assert host.default_batch(torch.device("cuda")) == 8192
+
+
+# ---- the port's own copies of the JAX package's host-only modules
+
+
+def test_codec_copy_matches_jax():
+    from orion_kmer_tpu_torch import codec as port_codec
+
+    rng = np.random.default_rng(1)
+    seq = rng.choice(list(b"ACGTacgtNnUu-"), size=5000).astype(np.uint8).tobytes()
+    for normalize in (True, False):
+        np.testing.assert_array_equal(
+            port_codec.seq_to_codes(seq, normalize), codec.seq_to_codes(seq, normalize)
+        )
+    codes = codec.seq_to_codes(seq)
+    for k in (1, 16, 21, 32):
+        vals = codec.extract_kmers_np(codes, k, canonical=False)
+        np.testing.assert_array_equal(port_codec.extract_kmers_np(codes, k), codec.extract_kmers_np(codes, k))
+        np.testing.assert_array_equal(port_codec.canonical_u64(vals, k), codec.canonical_u64(vals, k))
+        assert port_codec.u64s_to_seqs(vals[:50], k) == codec.u64s_to_seqs(vals[:50], k)
+
+
+def test_db_copy_matches_jax(tmp_path):
+    from orion_kmer_tpu.db import KmerDb as JaxDb
+    from orion_kmer_tpu.errors import OrionKmerError as JaxError
+    from orion_kmer_tpu_torch.db import KmerDb
+    from orion_kmer_tpu_torch.errors import OrionKmerError
+
+    rng = np.random.default_rng(2)
+    refs = {"a.fa": rng.integers(0, 1 << 62, 300, dtype=np.uint64), "b": np.empty(0, np.uint64)}
+    port, ref = KmerDb(k=21), JaxDb(k=21)
+    for name, v in refs.items():
+        port.add_reference(name, v)
+        ref.add_reference(name, v)
+    assert port.to_bincode() == ref.to_bincode()
+    port.save(tmp_path / "p.db.gz")
+    assert KmerDb.load(tmp_path / "p.db.gz").to_bincode() == ref.to_bincode()
+    bad = b"\x07" + b"\xff" * 64
+    errors = []
+    for cls, err in ((KmerDb, OrionKmerError), (JaxDb, JaxError)):
+        with pytest.raises(err) as e:
+            cls.from_bincode(bad, "x.db")
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES) + ["long"])
+def test_native_and_fastx_copies_match_jax(name):
+    from orion_kmer_tpu.ingest import native as jax_native
+    from orion_kmer_tpu_torch.ingest import fastx, native
+
+    data = (FIXTURES.get(name) or _long_fasta()).encode()
+    assert list(fastx.parse_fastx_bytes(data)) == list(parse_fastx_bytes(data))
+    assert native.available()
+    for normalize in (True, False):
+        got = native.parse_fastx_chunk(data, 9, normalize=normalize, eof=False)
+        exp = jax_native.parse_fastx_chunk(data, 9, normalize=normalize, eof=False)
+        for g, e in zip(got, exp):
+            if isinstance(e, np.ndarray):
+                np.testing.assert_array_equal(g, e)
+            else:
+                assert g == e
+    assert native._SRC.read_bytes() == jax_native._SRC.read_bytes()
+    assert "okt_torch_native" in str(native._compile())
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 1000])
+def test_sorted_unique_matches_np_unique(n):
+    from orion_kmer_tpu_torch.db import sorted_unique
+
+    rng = np.random.default_rng(n)
+    runs = [np.sort(rng.integers(0, 1 << 64, size=n, dtype=np.uint64)) for _ in range(3)]
+    x = np.concatenate(runs + [runs[0][: n // 2], rng.integers(0, 50, size=n, dtype=np.uint64)])
+    for values in (x, np.sort(x), runs[0]):
+        got = sorted_unique(values)
+        assert got.dtype == np.uint64
+        np.testing.assert_array_equal(got, np.unique(values))

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from orion_kmer_tpu import codec
-from orion_kmer_tpu_torch import _kernels
+from orion_kmer_tpu_torch import _kernels, codec
 from orion_kmer_tpu_torch.host import pack_for_transfer
-from orion_kmer_tpu_torch.ops import compact, extract, merge
+from orion_kmer_tpu_torch.keys import keys_from_u64
+from orion_kmer_tpu_torch.ops import compact, extract, merge, setops, sort
 
 
 @pytest.fixture
@@ -31,6 +31,7 @@ def test_cpu_path_never_loads_the_kernels(monkeypatch):
     x = torch.arange(10, dtype=torch.int64)
     merge.merge(x, x)
     compact.compact([x], x > 3)
+    sort.sort_pairs(x)
     lanes, inv = _wire(np.random.default_rng(0), 100, 128)
     extract.extract_keys(lanes, inv, 5, 100)
 
@@ -42,6 +43,8 @@ def test_non_cpu_non_cuda_tensors_raise():
         merge.merge(x, x)
     with pytest.raises(ValueError):
         compact.compact([x], torch.empty(8, dtype=torch.bool, device=device))
+    with pytest.raises(ValueError):
+        sort.sort_pairs(x)
     with pytest.raises(ValueError):
         extract.extract_keys(
             torch.empty(8, dtype=torch.int32, device=device),
@@ -97,3 +100,37 @@ def test_compact_kernel_matches_plain(cuda, n, density):
     m = int(gn)
     assert m == int(en)
     assert torch.equal(e0, g0[:m].cpu()) and torch.equal(e1, g1[:m].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 1000, 12289, 1 << 14])
+def test_sort_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))
+    keys[: n // 4] = keys[n // 4 : 2 * (n // 4)]  # duplicates
+    keys[0] = 2**63 - 1  # ties with the kernel's padding
+    before = sort.launches
+    got = sort.sort_pairs(keys.to(cuda))
+    assert sort.launches == before + 1
+    assert torch.equal(got.cpu(), sort.sort_pairs_plain(keys))
+
+
+@pytest.mark.cuda
+def test_joins_on_the_card_match_the_cpu(cuda):
+    rng = np.random.default_rng(9)
+    d = keys_from_u64(np.unique(rng.integers(0, 1 << 16, 5000, dtype=np.uint64)))
+    q = keys_from_u64(rng.integers(0, 1 << 16, 7000, dtype=np.uint64))
+    valid = torch.from_numpy(rng.random(7000) < 0.9)
+    assert torch.equal(setops.membership(q, valid, d), setops.membership(q.to(cuda), valid.to(cuda), d.to(cuda)).cpu())
+    for a, b in zip(setops.classify_join(q, d), setops.classify_join(q.to(cuda), d.to(cuda))):
+        assert torch.equal(a, b.cpu())
+    assert int(setops.intersection_size(d, d[::2].contiguous())) == int(
+        setops.intersection_size(d.to(cuda), d[::2].contiguous().to(cuda))
+    )
+    e = d[:0]
+    for q_, d_ in ((q, e), (e, d), (e, e)):
+        got = setops.classify_join(q_.to(cuda), d_.to(cuda))
+        assert not got[0].any() and not got[1].any()
+        assert got[0].shape == q_.shape and got[1].shape == d_.shape
+    for a_, b_ in ((d, e), (e, d), (e, e)):  # sorted unique sides only
+        assert int(setops.intersection_size(a_.to(cuda), b_.to(cuda))) == 0

@@ -1,4 +1,6 @@
-"""The port must run without JAX: the machine with the card has none."""
+"""The port must run without JAX and without the JAX package: the machine
+with the card has no JAX, and the port keeps its own copies of what it
+needs.  It runs on the card unless the caller asks for the CPU."""
 
 import re
 import subprocess
@@ -6,47 +8,77 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 
 import orion_kmer_tpu_torch
-from orion_kmer_tpu import codec
-from orion_kmer_tpu.ingest.fastx import parse_fastx_bytes
+from orion_kmer_tpu_torch import cli, codec
+from orion_kmer_tpu_torch.commands import count
+from orion_kmer_tpu_torch.ingest.fastx import parse_fastx_bytes
 
-from .util import SAMPLE1_FASTA, write_file
+from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, write_file
 
 PKG = Path(orion_kmer_tpu_torch.__file__).resolve().parent
 
 SCRIPT = """
 import sys
 from orion_kmer_tpu_torch.cli import main
-rc = main(["count", "-k", "5", "-i", sys.argv[1], "-o", sys.argv[2]])
-jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print(rc, jax_mods)
+fa, fq, d = sys.argv[1:]
+runs = [
+    ["count", "-k", "5", "-i", fa, "-o", d + "/o.tsv"],
+    ["build", "-k", "5", "-g", fa, fq, "-o", d + "/db.db"],
+    ["compare", "--db1", d + "/db.db", "--db2", d + "/db.db", "-o", d + "/cmp.json"],
+    ["query", "-d", d + "/db.db", "-r", fq, "-o", d + "/ids.txt"],
+    ["classify", "-i", fa, "-d", d + "/db.db", "-o", d + "/cl.json", "--output-tsv", d + "/cl.tsv"],
+]
+rcs = [main(["--device", "cpu", *argv]) for argv in runs]
+banned = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "orion_kmer_tpu" or m.startswith("orion_kmer_tpu.")
+)
+print(rcs, banned)
 """
 
 
-def test_count_runs_without_importing_jax(tmp_path):
-    f = write_file(tmp_path / "a.fa", SAMPLE1_FASTA)
-    out = tmp_path / "o.tsv"
+def test_every_subcommand_runs_without_jax_or_the_jax_package(tmp_path):
+    fa = write_file(tmp_path / "a.fa", SAMPLE1_FASTA)
+    fq = write_file(tmp_path / "b.fq", SAMPLE2_FASTQ)
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(f), str(out)],
+        [sys.executable, "-c", SCRIPT, str(fa), str(fq), str(tmp_path)],
         cwd=PKG.parent,
         capture_output=True,
         text=True,
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "0 []"
+    assert proc.stdout.strip() == "[0, 0, 0, 0, 0] []"
     vals = np.concatenate(
         [codec.extract_kmers_np(codec.seq_to_codes(r.seq), 5) for r in parse_fastx_bytes(SAMPLE1_FASTA.encode())]
     )
     uniq, counts = np.unique(vals, return_counts=True)
     expected = "".join(f"{codec.u64_to_seq(int(v), 5).decode()}\t{c}\n" for v, c in zip(uniq, counts))
-    assert out.read_text() == expected
+    assert (tmp_path / "o.tsv").read_text() == expected
+    for name in ("db.db", "cmp.json", "ids.txt", "cl.json", "cl.tsv"):
+        assert (tmp_path / name).exists(), name
 
 
-def test_no_jax_import_in_package_sources():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
-    offenders = [
-        str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())
-    ]
+def test_no_jax_or_jax_package_import_in_sources():
+    pattern = re.compile(r"^\s*(import jax|from jax|import orion_kmer_tpu\b(?!_torch)|from orion_kmer_tpu\b(?!_torch))", re.M)
+    sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
+    assert len(sources) > 20
+
+
+def test_default_device_without_a_card_fails_and_computes_nothing(tmp_path, monkeypatch, capsys):
+    f = write_file(tmp_path / "a.fa", SAMPLE1_FASTA)
+    out = tmp_path / "o.tsv"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_count(*args, **kwargs):
+        raise AssertionError("computed without a card")
+
+    monkeypatch.setattr(count, "run_count", no_count)
+    assert cli.main(["count", "-k", "5", "-i", str(f), "-o", str(out)]) == 1
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "no CUDA device" in err and "--device cpu" in err
+    assert not out.exists()
