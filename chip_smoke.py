@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py [--seed N] [--gbp G]
 
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
+
 Phases, in order; any failure raises and exits non-zero:
   1. device: the card's name and power limit, native ingest status;
-  2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc;
-  3. kernels: K1 (extract), K2 (merge), K3 (compact) and K4 (block sort)
-     against their plain torch versions on the card, at the main path's
-     shapes, exactly, with median times from CUDA events, beside the
-     library call that computes the same function and the card's bound;
+  2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc, print
+     ptxas's registers and spills per kernel, fail if K1 or K4 spills;
+  3. kernels: K1 (extract, every k in 1..32 at two batch lengths), K2
+     (merge), K3 (compact) and K4 (block sort, n from 1 to 2^14 across
+     every cluster size) against their plain torch versions on the card,
+     at the main path's shapes, exactly, with device times from CUDA
+     events around back-to-back calls (median_ms), beside the library
+     call that computes the same function and the card's bound;
   4. exact run: `count` at k = 15, 21, 31, 32 (once with small batches
      and a lowered device-table bound, so the forest deepens and the table
      spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
@@ -42,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -76,21 +82,41 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_MS
 
 
-def median_ms(torch, fn, reps: int = 10) -> float:
-    """Median time of fn() on the current stream, by CUDA events, after a
-    warm-up call."""
+def median_ms(torch, fn, calls: int = 20, reps: int = 7) -> float:
+    """Device time of one fn() call: the median over reps of `calls`
+    back-to-back calls between two CUDA events, divided by `calls`.  A
+    sleep kernel holds the stream while the host enqueues the calls, so
+    the host's launch overhead between calls is not timed (unless fn
+    waits for the device itself, as boolean indexing does)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(4_000_000)  # ~2 ms at the card's clock
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn, name: str, calls: int = 20):
+    """Device time per call of the kernels whose name contains `name`, by
+    torch.profiler; None where the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.key_averages() if name in e.key]
+    return sum(us) / calls / 1000 if us else None
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -286,6 +312,27 @@ def write_query_reads(np, path: Path, rng, records, n: int = 20_000):
 # ---------------------------------------------------------------- phases
 
 
+# kernels held to zero spill bytes (the redesigned K1 and K4)
+NO_SPILL = ("extract_kernel", "cluster_sort_kernel")
+
+
+def check_ptxas(report) -> None:
+    """Print ptxas's registers and spills per kernel (template instances of
+    one kernel on one line) and fail if a NO_SPILL kernel spills."""
+    groups = {}
+    for k in report:
+        base = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "", k["name"]).split("<")[0].split("(")[0]
+        groups.setdefault(base, []).append(k)
+    for name, ks in groups.items():
+        regs = sorted({k["registers"] for k in ks})
+        spill = sum(k["spill_stores"] + k["spill_loads"] for k in ks)
+        log(f"ptxas {name}: {len(ks)} instance(s), registers {regs[0]}-{regs[-1]}, spill bytes {spill}")
+        if any(n in name for n in NO_SPILL):
+            check(spill == 0, f"{name} spills no registers")
+    for n in NO_SPILL:
+        check(any(n in name for name in groups), f"ptxas reported {n}")
+
+
 def phase_kernels(np, torch, codec, dev, rng):
     """Each kernel against its plain version on the card; returns, per
     kernel, its record for the JSON line: kernel, plain and library times,
@@ -295,22 +342,29 @@ def phase_kernels(np, torch, codec, dev, rng):
 
     rec = {}
 
-    # K1: a 2^24-position batch with N runs; no library call computes it
+    # K1: a 2^24-position batch with N runs, and a batch whose length is no
+    # multiple of the kernel's 4224-position tile, at every k; no library
+    # call computes it
     n = 1 << 24
     codes = np.frombuffer(BASES, np.uint8)[rng.integers(0, 4, n)].copy()
     for p in rng.integers(0, n - 30, 2000):
         codes[p : p + int(rng.integers(1, 25))] = ord("N")
-    lanes, inv = pack_for_transfer(codec.seq_to_codes(codes), n)
-    L = torch.from_numpy(lanes.view(np.int32)).to(dev)
-    I = torch.from_numpy(inv.view(np.int32)).to(dev)
     err = 0.0
+    for size in ((1 << 20) + 32 * 7, n):
+        lanes, inv = pack_for_transfer(codec.seq_to_codes(codes[: size - 5]), size)
+        L = torch.from_numpy(lanes.view(np.int32)).to(dev)
+        I = torch.from_numpy(inv.view(np.int32)).to(dev)
+        for k in range(1, 33):
+            gk, gn = extract.extract_keys(L, I, k, size - 7)
+            pk, pn = extract.extract_keys_plain(L, I, k, size - 7)
+            err = max(err, max_abs_err(torch, gk, pk), abs(int(gn) - int(pn)))
+    log(f"K1 extract k = 1..32 at {(1 << 20) + 32 * 7} and 2^24 positions: largest error {err}")
     for k in (15, 21, 31, 32):
-        gk, gn = extract.extract_keys(L, I, k, n - 7)
-        pk, pn = extract.extract_keys_plain(L, I, k, n - 7)
-        err = max(err, max_abs_err(torch, gk, pk), abs(int(gn) - int(pn)))
         t_k = median_ms(torch, lambda: extract.extract_keys(L, I, k, n - 7))
         t_p = median_ms(torch, lambda: extract.extract_keys_plain(L, I, k, n - 7))
-        log(f"K1 extract k={k} 2^24 positions: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, n_valid {int(gn)}")
+        t_d = kernel_ms(torch, lambda: extract.extract_keys(L, I, k, n - 7), "extract_kernel")
+        log(f"K1 extract k={k} 2^24 positions: extract_keys {t_k:.4f} ms (the kernel alone {t_d} ms "
+            f"by torch.profiler), plain {t_p:.3f} ms")
         if k == 31:
             rec["K1"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
                              bound_ms=bound_ms(L.numel() * 4 + I.numel() * 4 + n * 8))
@@ -377,20 +431,23 @@ def phase_kernels(np, torch, codec, dev, rng):
     del x0, x1, keep
     torch.cuda.synchronize()
 
-    # K4: one block sorts 2^14 and 12289 keys, with duplicates and the
-    # all-ones key that ties with its padding
+    # K4: a cluster of 1 to 8 CTAs sorts each n below, with duplicates and
+    # the all-ones key that ties with its padding; timed at 2^14 and 12289
     err = 0.0
-    for m in (1 << 14, 12289):
+    for m in (1, 2, 3, 2047, 2048, 2049, 4097, 12289, 1 << 14):
         keys = torch.randint(-(1 << 62), 1 << 62, (m,), device=dev)
         keys[: m // 4] = keys[m // 4 : 2 * (m // 4)].clone()
         keys[0] = (1 << 63) - 1
         err = max(err, max_abs_err(torch, sort.sort_pairs(keys), sort.sort_pairs_plain(keys)))
-        t_k = median_ms(torch, lambda: sort.sort_pairs(keys), reps=50)
-        t_p = median_ms(torch, lambda: sort.sort_pairs_plain(keys), reps=50)
-        t_l = median_ms(torch, lambda: torch.sort(keys), reps=50)
+        if m < 12289:
+            continue
+        t_k = median_ms(torch, lambda: sort.sort_pairs(keys))
+        t_p = median_ms(torch, lambda: sort.sort_pairs_plain(keys))
+        t_l = median_ms(torch, lambda: torch.sort(keys))
+        t_d = kernel_ms(torch, lambda: sort.sort_pairs(keys), "cluster_sort_kernel")
         t_b = bound_ms(m * 16)
-        log(f"K4 sort {m} keys: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library torch.sort {t_l:.4f} ms, "
-            f"bound {t_b:.6f} ms")
+        log(f"K4 sort {m} keys: sort_pairs {t_k:.4f} ms (the kernel alone {t_d} ms by torch.profiler), "
+            f"plain {t_p:.4f} ms, library torch.sort {t_l:.4f} ms, bound {t_b:.6f} ms")
         if m == 1 << 14:
             rec["K4"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
     check(err == 0, "K4 agrees with its plain version")
@@ -654,6 +711,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gbp", type=float, default=0.5, help="Gbp of reads in the realistic run")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (build and kernels), printing no result line")
     args = ap.parse_args()
 
     import torch
@@ -677,12 +736,16 @@ def main() -> int:
     t0 = time.monotonic()
     _kernels.lib()
     log(f"phase 2 build: kernels built and loaded in {time.monotonic() - t0:.1f} s")
+    check_ptxas(_kernels.ptxas_report())
 
     rng = np.random.default_rng(args.seed)
     rec = phase_kernels(np, torch, codec, dev, rng)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the CLI subprocesses of phase 4 share the card
     log("phase 3 kernels: exact")
+    if args.kernels_only:
+        log(f"{card}; stopped after phase 3 (--kernels-only): no result line")
+        return 0
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)

@@ -9,7 +9,9 @@ from the sources in the repository and nothing else.  Importing this
 module builds nothing: the CPU path never calls ``lib()``.
 
 Each C entry returns ``cudaGetLastError()`` after its launches; ``check``
-turns a non-zero code into an exception.
+turns a non-zero code into an exception.  nvcc runs with ``-Xptxas -v``;
+its report (registers, shared memory and spills of every kernel) is kept
+beside the library as ``ptxas.txt`` and parsed by ``ptxas_report()``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import hashlib
 import logging
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +33,7 @@ _SRC_DIR = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "okt_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -48,8 +51,10 @@ _SIGNATURES = {
     "okt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
+_REPORT = "ptxas.txt"
 _lock = threading.Lock()
 _lib = None
+_so_path = None
 
 
 def _sources() -> list[Path]:
@@ -86,13 +91,17 @@ def _build() -> Path:
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         logger.info("Building CUDA kernels: %s", " ".join(cmd))
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
+    failed, report = [], []
     for obj, proc in jobs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) for {obj.name}:\n{err}")
+        report.append(err)
     if failed:
         raise RuntimeError("\n".join(failed))
+    report_tmp = out_dir / f"{_REPORT}.{tag}.tmp"
+    report_tmp.write_text("".join(report))
+    os.replace(report_tmp, out_dir / _REPORT)  # before the library, which marks a finished build
     tmp = out_dir / f"libokt_torch_kernels.{tag}.tmp"
     cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -106,18 +115,57 @@ def _build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _lib
+    global _lib, _so_path
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(str(_build()))
+            _so_path = _build()
+            so = ctypes.CDLL(str(_so_path))
             for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
             _lib = so
     return _lib
+
+
+def _demangle(names: list[str]) -> list[str]:
+    cands = [shutil.which("cu++filt"), Path(_nvcc()).parent / "cu++filt", shutil.which("c++filt")]
+    tool = next((str(c) for c in cands if c and Path(c).exists()), None)
+    if not names or tool is None:
+        return names
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    out = proc.stdout.splitlines()
+    return out if proc.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_report() -> list[dict]:
+    """Per kernel of the loaded library, from ptxas: ``name`` (demangled
+    where a demangler is found), ``registers``, ``spill_stores`` and
+    ``spill_loads`` in bytes."""
+    lib()
+    kernels = parse_ptxas((_so_path.parent / _REPORT).read_text())
+    for k, name in zip(kernels, _demangle([k["name"] for k in kernels])):
+        k["name"] = name
+    return kernels
+
+
+def parse_ptxas(text: str) -> list[dict]:
+    """``-Xptxas -v`` output -> per kernel ``name`` (mangled),
+    ``registers``, ``spill_stores`` and ``spill_loads``."""
+    kernels, cur = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = {"name": m.group(1), "registers": None, "spill_stores": 0, "spill_loads": 0}
+            kernels.append(cur)
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m.group(1))
+    return kernels
 
 
 def check(code: int, what: str) -> None:

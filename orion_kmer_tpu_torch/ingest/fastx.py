@@ -110,8 +110,10 @@ def _stream_records(f, source: str) -> Iterator[Record]:
     reference: needletail over BufRead, count.rs:63-79)."""
     import io
 
-    if not hasattr(f, "readline"):
-        f = io.BufferedReader(f)  # e.g. zstd stream_reader is raw-like
+    if not isinstance(f, io.BufferedIOBase):
+        # zstd's stream_reader is raw-like: its readline exists but raises
+        # io.UnsupportedOperation, so buffer every non-buffered stream
+        f = io.BufferedReader(f)
     with f:
         it = iter(f.readline, b"")
         # find the first non-blank line to detect the format

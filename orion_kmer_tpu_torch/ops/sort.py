@@ -1,5 +1,5 @@
-"""K4: ascending sort of up to ``MAX_SORT_N`` int64 keys in one thread
-block (``csrc/sort.cu``).
+"""K4: ascending sort of up to ``MAX_SORT_N`` int64 keys by one cluster of
+1 to 8 thread blocks (``csrc/sort.cu``).
 
 Replaces ``orion_kmer_tpu/ops/sort_pallas.py::_sort_kernel``, reached
 through ``_run_network`` from ``sort_pairs``.  The JAX entry sorts (hi, lo)

@@ -14,7 +14,11 @@ from orion_kmer_tpu_torch import engine
 from orion_kmer_tpu_torch.cli import main as port_main
 from orion_kmer_tpu_torch.keys import table_from_jax
 
+from .test_torch_ingest import jax_native_loaded  # noqa: F401  (a fixture)
 from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, TEST_INPUT1_FASTA, TEST_INPUT2_FASTQ, write_file
+
+# the JAX CLI and engine read through the JAX package's native parser
+pytestmark = pytest.mark.usefixtures("jax_native_loaded")
 
 FIXTURES = {
     "sample1.fa": SAMPLE1_FASTA,

@@ -10,7 +10,11 @@ from orion_kmer_tpu import codec, engine
 from orion_kmer_tpu.ingest.fastx import parse_fastx_bytes
 from orion_kmer_tpu_torch import host
 
+from .test_torch_ingest import jax_native_loaded  # noqa: F401  (a fixture)
 from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, TEST_INPUT1_FASTA, TEST_INPUT2_FASTQ, write_file
+
+# the JAX CLI and engine read through the JAX package's native parser
+pytestmark = pytest.mark.usefixtures("jax_native_loaded")
 
 FIXTURES = {
     "sample1": SAMPLE1_FASTA,

@@ -20,7 +20,11 @@ from .test_cli_compare import FASTA_DB1, FASTA_DB2
 from .test_cli_query import DB_FASTA, QUERY_FASTQ
 from .test_fuzz_parity import _EXTS, _random_reads
 from .test_torch_count import _assert_dirs_equal, _run_both, port_cpu
+from .test_torch_ingest import jax_native_loaded  # noqa: F401  (a fixture)
 from .util import write_file
+
+# the JAX CLI and engine read through the JAX package's native parser
+pytestmark = pytest.mark.usefixtures("jax_native_loaded")
 
 
 def _db(tmp_path, name, k, files):

@@ -61,11 +61,15 @@ def _wire(rng, n, size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,size", [(5000, 8192), (4096, 4096), ((1 << 20) - 37, 1 << 20)])
+@pytest.mark.parametrize(
+    "n,size",
+    # K1 walks 4224-position tiles: one partial tile, exact tiles, a ragged last tile
+    [(1, 32), (5000, 8192), (4096, 4096), (8448, 8448), (12700, 12704), ((1 << 20) - 37, 1 << 20)],
+)
 def test_extract_kernel_matches_plain(cuda, n, size):
     rng = np.random.default_rng(n)
     lanes, inv = _wire(rng, n, size)
-    for k in (1, 2, 15, 16, 17, 21, 31, 32):
+    for k in range(1, 33):
         pk, pn = extract.extract_keys_plain(lanes, inv, k, n)
         gk, gn = extract.extract_keys(lanes.to(cuda), inv.to(cuda), k, n)
         assert torch.equal(pk, gk.cpu()) and int(pn) == int(gn), k
@@ -103,7 +107,8 @@ def test_compact_kernel_matches_plain(cuda, n, density):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 1000, 12289, 1 << 14])
+# K4 runs clusters of 1 (n <= 2048), 2, 4 and 8 CTAs
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 2047, 2048, 2049, 4097, 8193, 12289, 1 << 14])
 def test_sort_kernel_matches_plain(cuda, n):
     rng = np.random.default_rng(n)
     keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))
