@@ -10,11 +10,13 @@ Phases, in order; any failure raises and exits non-zero:
   2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc, print
      ptxas's registers and spills per kernel, fail if K1 or K4 spills;
   3. kernels: K1 (extract, every k in 1..32 at two batch lengths), K2
-     (merge), K3 (compact) and K4 (block sort, n from 1 to 2^14 across
-     every cluster size) against their plain torch versions on the card,
-     at the main path's shapes, exactly, with device times from CUDA
-     events around back-to-back calls (median_ms), beside the library
-     call that computes the same function and the card's bound;
+     (merge), K3 (compact; also one plane at density 1/1000, the sketch's
+     survivors) and K4 (block sort, n from 1 to 2^14 across every cluster
+     size) against their plain torch versions on the card, at the main
+     path's shapes, exactly, with device times from CUDA events around
+     back-to-back calls (median_ms), beside the library call that computes
+     the same function and the card's bound; and the sketch's hash and
+     keep chain (torch ops) per 2^24 batch;
   4. exact run: `count` at k = 15, 21, 31, 32 (once with small batches
      and a lowered device-table bound, so the forest deepens and the table
      spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
@@ -36,7 +38,19 @@ Phases, in order; any failure raises and exits non-zero:
      ``engine.query_hits`` against the ids written, and the counts of a
      sample of 20,000 reads against the oracle); then K4's own
      entry, `sort_pairs`, on canonical keys of the reads (no command
-     reaches K4).
+     reaches K4);
+  7. sketch (BASELINE config #3): `sketch -k 31 --scaled 1000` of 50
+     synthetic 5 Mbp genomes in 5 clades (0.1-5 % substitutions from each
+     clade's ancestor) and of the phase-5 reads, and `sketch-compare` of
+     the 50 (1,225 pairs): every genome's sketch and every pair exactly
+     against the numpy oracle, the reads' sketch against the phase-5
+     count table (see phase_sketch);
+  8. profile (BASELINE config #4, one card): `profile -k 31 -d DB
+     --scaled 1000` of the phase-5 reads, a smaller sample and a missing
+     file, against the oracle (see phase_profile);
+  9. serve: `serve --warm-k 31` in a subprocess; a `count` and a `sketch`
+     forwarded twice each, byte-equal to direct runs, with the walls of
+     the first and second request; shutdown removes the socket.
 The last line is the result JSON; the kernel JSON and the card's
 `nvidia-smi` name and power limit are printed before it.  Needs no
 network and no JAX.
@@ -338,7 +352,8 @@ def phase_kernels(np, torch, codec, dev, rng):
     kernel, its record for the JSON line: kernel, plain and library times,
     the bound from the bytes it must move, and the largest error."""
     from orion_kmer_tpu_torch.host import pack_for_transfer
-    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, sketch, sort
+    from orion_kmer_tpu_torch.ops import hash as hash_ops
 
     rec = {}
 
@@ -370,6 +385,14 @@ def phase_kernels(np, torch, codec, dev, rng):
                              bound_ms=bound_ms(L.numel() * 4 + I.numel() * 4 + n * 8))
     check(err == 0, "K1 agrees with its plain version")
     rec["K1"]["max_abs_err"] = err
+    # the sketch's hash and keep chain (torch ops, no kernel of its own) on
+    # K1's keys of the 2^24 batch: its device time per batch, beside the
+    # bytes it must move (8 B in, a 1 B mask out per position)
+    keys, _ = extract.extract_keys(L, I, 31, n - 7)
+    t_h = median_ms(torch, lambda: sketch.keep_mask(keys, hash_ops.splitmix64(keys), 1000))
+    log(f"sketch hash-and-keep chain, 2^24 keys, k = 31, scaled = 1000: {t_h:.4f} ms per batch, "
+        f"bound {bound_ms(n * 9):.4f} ms")
+    del keys
     torch.cuda.synchronize()
 
     # K2: two sorted 2^24-key forest runs with many duplicates (keys only),
@@ -426,9 +449,24 @@ def phase_kernels(np, torch, codec, dev, rng):
             f"library x[keep] per plane {t_l:.3f} ms, bound {t_b:.4f} ms")
         if density == 0.5:
             rec["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
+    # K3 at the sketch's shape: one plane, the hashes of a 2^24 batch, at
+    # density 1/1000 (the survivors of scaled = 1000)
+    n = 1 << 24
+    h = x0[:n].clone()
+    keep = torch.rand(n, device=dev) < 1e-3
+    (g0,), gn = compact.compact([h], keep)
+    (p0,), pn = compact.compact_plain([h], keep)
+    m = int(gn)
+    check(m == int(pn), "K3 kept count at density 1/1000")
+    err = max(err, max_abs_err(torch, g0[:m], p0))
+    t_k = median_ms(torch, lambda: compact.compact([h], keep))
+    t_p = median_ms(torch, lambda: compact.compact_plain([h], keep))
+    t_l = median_ms(torch, lambda: h[keep])
+    log(f"K3 compact 2^24 x 1 plane density 1/1000 ({m} kept): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"library x[keep] {t_l:.4f} ms, bound {bound_ms(n * 9 + m * 8):.4f} ms")
     check(err == 0, "K3 agrees with its plain version")
     rec["K3"]["max_abs_err"] = err
-    del x0, x1, keep
+    del x0, x1, h, keep, g0, g1, p0, p1
     torch.cuda.synchronize()
 
     # K4: a cluster of 1 to 8 CTAs sorts each n below, with duplicates and
@@ -476,28 +514,46 @@ CLASSIFY_TSV_HEADER = (
 )
 
 
+def classify_expected(np, refs, vals, counts):
+    """Per reference (sorted names) of a database: (name, k-mers in it,
+    input k-mers (vals, counts) it holds, their depth sum); and over the
+    union of the references, (matched, depth)."""
+    in_any = np.zeros(vals.shape[0], bool)
+    rows = []
+    for name in sorted(refs):
+        hit = np.isin(vals, refs[name])
+        in_any |= hit
+        rows.append((name, refs[name].shape[0], int(hit.sum()), int(counts[hit].sum())))
+    return rows, int(in_any.sum()), int(counts[in_any].sum())
+
+
+def check_db_result(np, res, refs, vals, counts, what):
+    """One ``databases_analyzed`` entry (every reference reported, as at
+    --min-coverage 0) against the oracle."""
+    rows, matched, depth = classify_expected(np, refs, vals, counts)
+    got = [(r["reference_name"], r["total_kmers_in_reference"], r["input_kmers_hitting_reference"],
+            r["sum_depth_of_matched_kmers_in_input"]) for r in res["references"]]
+    check(got == rows, f"{what}: per-reference matches and depths == oracle")
+    check(res["overall_input_kmers_matched_in_db"] == matched, f"{what}: overall matched")
+    check(res["overall_sum_depth_of_matched_kmers_in_input"] == depth, f"{what}: overall depth")
+
+
 def check_classify(np, json_path: Path, tsv_path: Path, input_path, db_path, refs, vals, counts):
     """classify's JSON and TSV against the oracle: per reference (sorted
     names), the filtered input k-mers (vals, counts) it holds and their
     depth sum; overall, their union."""
     lines = [CLASSIFY_TSV_HEADER]
     n_in = vals.shape[0]
-    in_any = np.zeros(n_in, bool)
-    for name in sorted(refs):
-        total = refs[name].shape[0]
-        hit = np.isin(vals, refs[name])
-        in_any |= hit
-        matched, depth = int(hit.sum()), int(counts[hit].sum())
+    rows, _, _ = classify_expected(np, refs, vals, counts)
+    for name, total, matched, depth in rows:
         avg = depth / matched if matched else 0.0
         prop = matched / n_in if n_in else 0.0
         breadth = matched / total if total else 0.0
         lines.append(f"{input_path}\t{db_path}\t{name}\t{total}\t{matched}\t{depth}\t{avg:.4f}\t{prop:.4f}\t{breadth:.4f}\n")
     check(tsv_path.read_text() == "".join(lines), f"classify TSV {tsv_path.name} == oracle")
     doc = json.loads(json_path.read_text())
-    res = doc["databases_analyzed"][0]
     check(doc["total_unique_kmers_in_input"] == n_in, "classify input k-mers after the filter")
-    check(res["overall_input_kmers_matched_in_db"] == int(in_any.sum()), "classify overall matched")
-    check(res["overall_sum_depth_of_matched_kmers_in_input"] == int(counts[in_any].sum()), "classify overall depth")
+    check_db_result(np, doc["databases_analyzed"][0], refs, vals, counts, "classify")
     return len(lines) - 1
 
 
@@ -608,31 +664,46 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     return launches, fq, out, n_reads, n_windows, genome, read_sample
 
 
+def kernel_modules():
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+
+    return {"K1": extract, "K2": merge, "K3": compact, "K4": sort}
+
+
+def drive(torch, dev, argv):
+    """One command through the port's CLI in this process, with the launch
+    counters zeroed just before it: (wall s, launches, peak device bytes)."""
+    from orion_kmer_tpu_torch import cli
+
+    kernels = kernel_modules()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in kernels.values():
+        mod.launches = 0
+    t0 = time.monotonic()
+    rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(rc == 0, f"{argv[0]} exit code")
+    return wall, {name: mod.launches for name, mod in kernels.items()}, torch.cuda.max_memory_allocated(dev)
+
+
+def report(what, wall, launches, peak, extra=""):
+    log(f"{what}: wall {wall:.3f} s{extra}, peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
+
+
 def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample):
     """The realistic joins, each command in process with the launch
-    counters zeroed just before it; returns the launches of each run."""
+    counters zeroed just before it.  Returns the launches of each run, the
+    references' oracle k-mer sets, the DB built from them and the count
+    table of phase 5 (k-mers with count >= 2)."""
     from orion_kmer_tpu_torch import cli, engine
     from orion_kmer_tpu_torch.db import KmerDb
     from orion_kmer_tpu_torch.keys import keys_from_u64, u64_from_keys
-    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
 
     k = 31
-    kernels = {"K1": extract, "K2": merge, "K3": compact, "K4": sort}
-
-    def drive(argv):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        for mod in kernels.values():
-            mod.launches = 0
-        t0 = time.monotonic()
-        rc = cli.main([str(a) for a in argv])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        check(rc == 0, f"{argv[0]} exit code")
-        return wall, {name: mod.launches for name, mod in kernels.items()}, torch.cuda.max_memory_allocated(dev)
-
-    def report(what, wall, launches, peak, extra=""):
-        log(f"{what}: wall {wall:.3f} s{extra}, peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
+    kernels = kernel_modules()
+    sort = kernels["K4"]
 
     lut = np.frombuffer(BASES, np.uint8)
     g_b = genome.copy()
@@ -648,14 +719,14 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     runs = {}
 
     db = work / "refs.db"
-    wall, launches, peak = drive(["build", "-k", k, "-g", *paths, "-o", db])
+    wall, launches, peak = drive(torch, dev, ["build", "-k", k, "-g", *paths, "-o", db])
     got = KmerDb.load(db).references
     check(sorted(got) == sorted(refs) and all(np.array_equal(got[n], refs[n]) for n in refs), "build -k 31 == oracle")
     report(f"build -k 31 of 3 references ({union.shape[0]} unique 31-mers)", wall, launches, peak)
     runs["build"] = launches
 
     ids = work / "ids.txt"
-    wall, launches, peak = drive(["query", "-d", db, "-r", fq, "-o", ids, "-c", 10])
+    wall, launches, peak = drive(torch, dev, ["query", "-d", db, "-r", fq, "-o", ids, "-c", 10])
     # the per-read hit counts under the run (same batches): every read's
     # against the ids written, the sampled reads' exactly against the oracle
     all_ids, _, all_hits = engine.query_hits(union, fq, k, dev)
@@ -672,15 +743,15 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     runs["query"] = launches
 
     out, tsv = work / "cl.json", work / "cl.tsv"
-    wall, launches, peak = drive(["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
-    vals, counts = parse_tsv(np, codec, count_tsv.read_bytes(), k)
-    check_classify(np, out, tsv, fq, db, refs, vals, counts)
-    report(f"classify -m 2 ({vals.shape[0]} input k-mers, exact)", wall, launches, peak)
+    wall, launches, peak = drive(torch, dev, ["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
+    vals_tsv, counts_tsv = parse_tsv(np, codec, count_tsv.read_bytes(), k)
+    check_classify(np, out, tsv, fq, db, refs, vals_tsv, counts_tsv)
+    report(f"classify -m 2 ({vals_tsv.shape[0]} input k-mers, exact)", wall, launches, peak)
     runs["classify"] = launches
 
     db2, cmp_out = work / "ab.db", work / "cmp.json"
     check(cli.main(["build", "-k", str(k), "-g", str(paths[0]), str(paths[1]), "-o", str(db2)]) == 0, "build A B")
-    wall, launches, peak = drive(["compare", "--db1", db, "--db2", db2, "-o", cmp_out])
+    wall, launches, peak = drive(torch, dev, ["compare", "--db1", db, "--db2", db2, "-o", cmp_out])
     u2 = sorted_unique(np, np.concatenate([refs["genomeA.fa"], refs["genomeB.fa"]]))
     inter = int(np.intersect1d(union, u2).shape[0])
     got = json.loads(cmp_out.read_text())
@@ -704,6 +775,234 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     runs["sort_pairs"] = {name: mod.launches for name, mod in kernels.items()}
     log(f"sort_pairs entry: launches {runs['sort_pairs']}")
     check(runs["sort_pairs"]["K4"] == 2, "K4 launched by its entry")
+    return runs, refs, db, (vals_tsv, counts_tsv)
+
+
+def write_clades(np, work: Path, rng, n_genomes: int = 50, n_clades: int = 5, length: int = 5_000_000):
+    """n_genomes synthetic bacterial genomes in n_clades clades: each one
+    its clade's random ancestor with 0.1-5 % substitutions, so that the
+    Jaccard of two genomes runs from ~0 (two clades) to ~0.9 (two close
+    relatives).  Returns the paths and the genomes' 2-bit codes."""
+    lut = np.frombuffer(BASES, np.uint8)
+    rates = np.geomspace(0.001, 0.05, n_genomes // n_clades)
+    paths, genomes = [], []
+    for c in range(n_clades):
+        ancestor = rng.integers(0, 4, length).astype(np.uint8)
+        for j, rate in enumerate(rates):
+            g = ancestor.copy()
+            subs = rng.random(length) < rate
+            g[subs] = (g[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+            path = work / f"clade{c}_g{j}.fa"
+            write_fasta(path, path.stem.encode(), lut[g].tobytes())
+            paths.append(path)
+            genomes.append(g)
+    return paths, genomes
+
+
+def sketch_oracle(np, codec, hash_np, codes, k: int, scaled: int):
+    """(sorted kept hashes, abundances) of one sequence's canonical k-mer
+    windows, by numpy: splitmix64 of every window, the threshold, then the
+    unique survivors and their multiplicities."""
+    h = hash_np(codec.extract_kmers_np(codes, k))
+    kept = np.sort(h[h < np.uint64((1 << 64) // scaled)])
+    if kept.shape[0] == 0:
+        return kept, np.empty(0, np.int64)
+    head = np.concatenate([[True], kept[1:] != kept[:-1]])
+    starts = np.flatnonzero(head)
+    return kept[starts], np.diff(np.concatenate([starts, [kept.shape[0]]]))
+
+
+def sig_hashes(sketch):
+    return [int(h) for h in sketch["hashes"]]
+
+
+def phase_sketch(np, torch, codec, work: Path, rng, dev, fq, read_bases, table_ge2):
+    """BASELINE config #3: `sketch -k 31 --scaled 1000` of 50 genomes and of
+    the phase-5 reads, and `sketch-compare` of the 50 (1,225 pairs), in
+    process with the counters zeroed before each.  Every genome's sketch
+    (hashes and abundances) against the numpy oracle; every pair's
+    intersection against ``pairwise_intersections`` of the oracle sketches,
+    itself held to np.intersect1d; the reads' sketch entries of abundance
+    >= 2 against the phase-5 count table.  Returns the launches of each
+    run and the reads' sketch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orion_kmer_tpu_torch.ops.hash import splitmix64_np
+    from orion_kmer_tpu_torch.ops.sketch import pairwise_intersections
+
+    k, scaled = 31, 1000
+    t0 = time.monotonic()
+    paths, genomes = write_clades(np, work, rng)
+    n_bases = sum(g.shape[0] for g in genomes)
+    log(f"sketch run: {len(paths)} genomes, {n_bases} bases, generated in {time.monotonic() - t0:.1f} s")
+    runs = {}
+
+    sig = work / "genomes.sig"
+    wall, launches, peak = drive(torch, dev, ["sketch", "-k", k, "--scaled", scaled, "-i", *paths, "-o", sig])
+    report(f"sketch -k {k} --scaled {scaled} of {len(paths)} genomes", wall, launches, peak,
+           f", {n_bases / wall / 1e9:.4f} Gbp/s")
+    check(launches["K1"] > 0 and launches["K3"] > 0, "K1 and K3 launched in sketch")
+    runs["sketch genomes"] = launches
+    doc = json.loads(sig.read_text())
+    check([s["name"] for s in doc["sketches"]] == [str(p) for p in paths], "one sketch per genome, in order")
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(8) as pool:
+        oracle = list(pool.map(lambda g: sketch_oracle(np, codec, splitmix64_np, g, k, scaled), genomes))
+    for s, (h, a) in zip(doc["sketches"], oracle):
+        check(sig_hashes(s) == h.tolist() and s["abundances"] == a.tolist(), f"sketch of {s['name']} == oracle")
+    sizes = [h.shape[0] for h, _ in oracle]
+    log(f"every genome sketch == oracle (hashes and abundances, {min(sizes)}-{max(sizes)} hashes each; "
+        f"oracle {time.monotonic() - t0:.1f} s)")
+
+    cmp_out = work / "genomes_cmp.json"
+    wall, launches, peak = drive(torch, dev, ["sketch-compare", "-s", sig, "-o", cmp_out])
+    runs["sketch-compare"] = launches
+    mat = pairwise_intersections([h for h, _ in oracle])
+    pairs = json.loads(cmp_out.read_text())["pairs"]
+    n = len(paths)
+    check(len(pairs) == n * (n - 1) // 2, "sketch-compare: every pair")
+    it = iter(pairs)
+    for i in range(n):
+        for j in range(i + 1, n):
+            p = next(it)
+            inter = int(mat[i, j])
+            check(inter == np.intersect1d(oracle[i][0], oracle[j][0], assume_unique=True).shape[0],
+                  "pairwise_intersections == np.intersect1d")
+            union = sizes[i] + sizes[j] - inter
+            check(p["intersection"] == inter and p["union"] == union and p["jaccard"] == inter / union,
+                  f"sketch-compare pair {i} {j} == oracle")
+    jac = [p["jaccard"] for p in pairs]
+    report(f"sketch-compare of {n} sketches ({len(pairs)} pairs exact, Jaccard {min(jac):.4f}-{max(jac):.4f})",
+           wall, launches, peak)
+
+    reads_sig = work / "reads.sig"
+    wall, launches, peak = drive(torch, dev, ["sketch", "-k", k, "--scaled", scaled, "-i", fq, "-o", reads_sig])
+    runs["sketch reads"] = launches
+    reads_sketch = json.loads(reads_sig.read_text())["sketches"][0]
+    got = dict(zip(sig_hashes(reads_sketch), reads_sketch["abundances"]))
+    vals, counts = table_ge2
+    h = splitmix64_np(vals)
+    keep = h < np.uint64((1 << 64) // scaled)
+    want = dict(zip(h[keep].tolist(), counts[keep].tolist()))
+    check({x: a for x, a in got.items() if a >= 2} == want, "reads sketch, abundance >= 2 == the count table")
+    check(sig_hashes(reads_sketch) == sorted(got), "reads sketch ascending")
+    report(f"sketch -k {k} --scaled {scaled} of the reads ({len(got)} hashes, {len(want)} with abundance >= 2 exact)",
+           wall, launches, peak, f", {read_bases / wall / 1e9:.4f} Gbp/s")
+    return runs, reads_sketch
+
+
+def write_small_sample(np, path: Path, rng, genome, n_reads: int = 20_000, read_len: int = 150):
+    """A second, smaller sample: reads of the genome with 0.5 % errors and
+    a few N runs.  Returns their sequences."""
+    lut = np.frombuffer(BASES + b"N", np.uint8)
+    starts = rng.integers(0, genome.shape[0] - read_len, n_reads)
+    reads = genome[starts[:, None] + np.arange(read_len)]
+    err = rng.random(reads.shape) < 0.005
+    reads[err] = (reads[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    reads[rng.random(n_reads) < 0.01, 70:75] = 4
+    seqs = [lut[r].tobytes() for r in reads]
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@s%d\n%s\n+\n%s\n" % (i, s, b"I" * read_len) for i, s in enumerate(seqs)))
+    return seqs
+
+
+def phase_profile(np, torch, codec, work: Path, rng, dev, fq, n_windows, genome, refs, db, reads_sketch):
+    """BASELINE config #4 on one card: `profile -k 31 -d DB --scaled 1000`
+    of the phase-5 reads, a smaller sample and a sample whose file is
+    missing.  The small sample exactly against the numpy oracle (totals,
+    unique, max multiplicity, the sketch, every reference's matches and
+    depth); the reads: totals against the generator's window count, the
+    sketch against the `sketch` command's, unique, max and the references
+    against ``engine.count_file`` (held to phase 5's table) with the
+    oracle's reference sets."""
+    from orion_kmer_tpu_torch import engine
+    from orion_kmer_tpu_torch.ops.hash import splitmix64_np
+
+    k, scaled = 31, 1000
+    small = work / "small_sample.fastq"
+    seqs = write_small_sample(np, small, rng, genome)
+    manifest = work / "manifest.json"
+    manifest.write_text(json.dumps([
+        {"sample": "reads", "files": [str(fq)]},
+        {"sample": "small", "files": [str(small)]},
+        {"sample": "missing", "files": [str(work / "missing.fastq")]},
+    ]))
+    out = work / "profile.json"
+    wall, launches, peak = drive(torch, dev, ["profile", "-k", k, "--manifest", manifest, "-d", db,
+                                              "--scaled", scaled, "-o", out])
+    doc = json.loads(out.read_text())
+    big, sm, missing = doc["profiles"]
+    check(doc["n_ok"] == 2 and doc["n_error"] == 1, "profile: two samples ok, one error")
+    check(missing["status"] == "error" and "missing.fastq" in missing["error"], "profile: the missing sample's error")
+
+    vals, counts = oracle_counts(np, codec, seqs, k)
+    check(sm["total_kmers"] == int(counts.sum()) and sm["unique_kmers"] == vals.shape[0]
+          and sm["max_multiplicity"] == int(counts.max()), "profile small sample: totals == oracle")
+    h = splitmix64_np(vals)
+    h = np.sort(h[h < np.uint64((1 << 64) // scaled)])
+    check(sig_hashes(sm["sketch"]) == h.tolist(), "profile small sample: sketch == oracle")
+    check_db_result(np, sm["databases_analyzed"][0], refs, vals, counts, "profile small sample")
+
+    check(big["total_kmers"] == n_windows, "profile reads: total == valid windows")
+    check(sig_hashes(big["sketch"]) == sig_hashes(reads_sketch), "profile reads: sketch == the sketch command's")
+    rvals, rcounts = engine.count_file(fq, k, dev)
+    check(big["unique_kmers"] == rvals.shape[0] and big["max_multiplicity"] == int(rcounts.max()),
+          "profile reads: unique and max == count_file")
+    check_db_result(np, big["databases_analyzed"][0], refs, rvals, rcounts, "profile reads")
+    report(f"profile -k {k} --scaled {scaled} -d (3 samples, 1 missing; {big['unique_kmers']} + "
+           f"{sm['unique_kmers']} distinct k-mers, exact)", wall, launches, peak,
+           f", {doc['samples_per_hour']} samples/h")
+    return {"profile": launches}
+
+
+def phase_serve(torch, work: Path, dev, count_input, sketch_inputs):
+    """`serve --warm-k 31` as a subprocess: a `count` and a `sketch`
+    forwarded twice each, byte-equal to direct runs in this process (whose
+    launches are returned); the walls of the first and second request;
+    shutdown removes the socket and ends the server."""
+    from orion_kmer_tpu_torch.server import forward
+
+    sock = work / "okt.sock"
+    err_log = work / "serve.err"
+    t0 = time.monotonic()
+    with open(err_log, "wb") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "orion_kmer_tpu_torch", "serve", "--socket", str(sock), "--warm-k", "31"],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err_f,
+        )
+    try:
+        while not sock.exists():
+            check(proc.poll() is None, f"serve exited early: {err_log.read_text()[-2000:]}")
+            check(time.monotonic() - t0 < 600, "serve ready within 600 s")
+            time.sleep(0.05)
+        log(f"serve --warm-k 31: socket ready {time.monotonic() - t0:.3f} s after the process started")
+        requests = {
+            "count": lambda o: ["count", "-k", 31, "-i", count_input, "-o", o],
+            "sketch": lambda o: ["sketch", "-k", 31, "--scaled", 1000, "-i", *sketch_inputs, "-o", o],
+        }
+        runs = {}
+        for name, argv_of in requests.items():
+            direct = work / f"direct_{name}.out"
+            wall, launches, _ = drive(torch, dev, argv_of(direct))
+            runs[f"serve direct {name}"] = launches
+            walls = []
+            for i in range(2):
+                served = work / f"served_{name}{i}.out"
+                t1 = time.monotonic()
+                rc = forward(sock, [str(a) for a in argv_of(served)])
+                walls.append(time.monotonic() - t1)
+                check(rc == 0, f"served {name} exit code")
+                check(served.read_bytes() == direct.read_bytes(), f"served {name} == direct run")
+            log(f"served {name}: first request {walls[0]:.3f} s, second {walls[1]:.3f} s, "
+                f"direct in this process {wall:.3f} s; bytes equal")
+        check(forward(sock, ["shutdown"]) == 0, "shutdown exit code")
+        check(proc.wait(60) == 0, "serve exit code")
+        check(not sock.exists(), "shutdown removes the socket")
+        log("serve: shut down, socket removed")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     return runs
 
 
@@ -757,14 +1056,25 @@ def main() -> int:
             np, torch, codec, work, rng, args.gbp, dev
         )
         log("phase 5 realistic run: passed")
-        runs = phase_joins(np, torch, codec, work, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample)
+        runs, refs, db, table_ge2 = phase_joins(
+            np, torch, codec, work, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample
+        )
         log("phase 6 realistic joins: passed")
+        sketch_runs, reads_sketch = phase_sketch(np, torch, codec, work, rng, dev, fq, 150 * n_reads, table_ge2)
+        runs.update(sketch_runs)
+        log("phase 7 sketch: passed")
+        runs.update(phase_profile(np, torch, codec, work, rng, dev, fq, n_windows, genome, refs, db, reads_sketch))
+        log("phase 8 profile: passed")
+        runs.update(phase_serve(torch, work, dev, work / "big.fasta", sorted(work.glob("clade0_g*.fa"))[:2]))
+        log("phase 9 serve: passed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches: K1-K3 summed over the command runs of phases 5 and 6; K4,
+    # launches: K1-K3 summed over the command runs of phases 5 to 9; K4,
     # which no command reaches, from its entry's run
     runs["count"] = launches
+    for name, r in runs.items():
+        log(f"launches of {name}: {r}")
     total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3")}
     total["K4"] = runs["sort_pairs"]["K4"]
     pkg = "orion_kmer_tpu_torch/csrc"

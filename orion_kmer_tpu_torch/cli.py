@@ -1,15 +1,18 @@
-"""Command-line interface of the port: ``count``, ``build``, ``compare``,
-``query`` and ``classify``.
+"""Command-line interface of the port: every subcommand of the JAX
+package's CLI (``count``, ``build``, ``compare``, ``query``,
+``classify``, ``sketch``, ``sketch-compare``, ``profile``, ``serve``,
+``cohort``) and the global ``--server PATH`` client flag.
 
 The same flags, help, ``-t``/``-v`` and error rendering as
 ``orion_kmer_tpu/cli.py`` (which mirrors the reference clap CLI,
 orion-kmer/src/cli.rs, and main.rs:7-16: log the outermost error, exit
-1).  The other subcommands of the JAX package are not ported yet, so
-argparse rejects them (exit 2).
+1).  Counting spread over several devices is not ported yet.
 
 ``--device`` picks where the work runs: ``cuda`` (the default) or
 ``cpu``.  Without a visible card the default fails with one error line
-and exit 1; the port never moves to the CPU unless asked.
+and exit 1, for every subcommand; the port never moves to the CPU unless
+asked.  ``--server PATH`` sends the rest of the argv to a running
+``serve`` instead, before anything else is parsed.
 """
 
 from __future__ import annotations
@@ -180,7 +183,94 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument(
         "--output-tsv", default=None, help="Optional TSV summary output path"
     )
+
+    # sketch (FracMinHash, BASELINE.json config 3)
+    sk = sub.add_parser("sketch", help="FracMinHash sketch of FASTA/FASTQ files")
+    sk.add_argument("-k", "--kmer-size", type=int, required=True)
+    sk.add_argument(
+        "-i", "--input-files", nargs="+", action="extend", required=True,
+        help="Input FASTA/FASTQ files (one sketch per file)",
+    )
+    sk.add_argument("-o", "--output-file", required=True, help="Output .sig JSON")
+    sk.add_argument(
+        "--scaled", type=int, default=1000,
+        help="Keep k-mers with hash < 2^64/scaled (FracMinHash)",
+    )
+    sk.add_argument(
+        "--num", type=int, default=0,
+        help="Optional bottom-N MinHash cap on top of the scaled filter",
+    )
+
+    skc = sub.add_parser(
+        "sketch-compare", help="Pairwise Jaccard/containment between sketches"
+    )
+    skc.add_argument(
+        "-s", "--sketches", dest="sketch_files", nargs="+", action="extend",
+        required=True, help="Sketch .sig files",
+    )
+    skc.add_argument("-o", "--output-file", required=True, help="Output JSON")
+
+    # profile (multi-sample cohort profiling, BASELINE.json config 4)
+    pr = sub.add_parser(
+        "profile", help="Profile many samples from a cohort manifest in one run"
+    )
+    pr.add_argument("-k", "--kmer-size", type=int, required=True)
+    pr.add_argument(
+        "--manifest", required=True,
+        help='JSON manifest: [{"sample": name, "files": [fastx...]}, ...]',
+    )
+    pr.add_argument("-o", "--output-file", required=True, help="Output JSON")
+    pr.add_argument(
+        "-d", "--databases", dest="database_files", nargs="+", action="extend",
+        default=None, help="Optional k-mer databases to classify each sample against",
+    )
+    pr.add_argument(
+        "--scaled", type=int, default=None,
+        help="Optional FracMinHash scale: include a sketch per sample",
+    )
+    pr.add_argument(
+        "--min-coverage", type=float, default=0.0,
+        help="Minimum reference breadth to report (classification mode)",
+    )
+
+    # serve (resident server: one process answers many requests)
+    sv = sub.add_parser("serve", help="Run a persistent engine server on a unix socket")
+    sv.add_argument("--socket", required=True, help="Unix socket path to listen on")
+    sv.add_argument(
+        "--warm-k",
+        type=int,
+        nargs="*",
+        default=[],
+        help="Pre-warm the count path for these k values at startup",
+    )
+
+    # cohort (entrez-tool + hybrid finder CLI drivers)
+    from .commands.cohort import add_cohort_parser
+
+    add_cohort_parser(sub)
     return p
+
+
+def _extract_server_flag(argv: list[str]) -> tuple[str | None, list[str]]:
+    """Pull a global --server PATH / --server=PATH out of raw argv.
+
+    Handled before argparse so the remaining argv is forwarded to the
+    server byte-exactly (re-serializing parsed args would be lossy)."""
+    rest: list[str] = []
+    path = None
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--server" and i + 1 < len(argv):
+            path = argv[i + 1]
+            i += 2
+        elif a.startswith("--server="):
+            path = a.split("=", 1)[1]
+            i += 1
+        else:
+            rest.append(a)
+            i += 1
+    return path, rest
 
 
 @contextlib.contextmanager
@@ -199,6 +289,11 @@ def _profiled(trace_dir: str, device):
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else [str(a) for a in argv]
+    server_path, argv = _extract_server_flag(argv)
+    if server_path is not None:
+        from .server import forward
+
+        return forward(server_path, argv)
     args = build_parser().parse_args(argv)
     setup_logging(args.verbose)
 
@@ -218,14 +313,20 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     logger.info("Device: %s", device)
 
-    from .commands import build, classify, compare, count, query
+    from .commands import build, classify, cohort, compare, count, profile, query, sketch
+    from .server import run_serve
 
     dispatch = {
+        "serve": run_serve,
         "count": count.run_count,
         "build": build.run_build,
         "compare": compare.run_compare,
         "query": query.run_query,
         "classify": classify.run_classify,
+        "sketch": sketch.run_sketch,
+        "sketch-compare": sketch.run_sketch_compare,
+        "profile": profile.run_profile,
+        "cohort": cohort.run_cohort,
     }
     try:
         ctx = _profiled(args.trace, device) if args.trace else contextlib.nullcontext()

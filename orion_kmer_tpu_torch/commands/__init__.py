@@ -1,1 +1,1 @@
-"""The port's subcommands: ``count`` and ``build``."""
+"""The port's subcommands: every one of the JAX package's CLI."""

@@ -5,7 +5,8 @@ The torch counterpart of ``orion_kmer_tpu/engine.py``'s
 ``DeviceCountTable``, ``count_file``, ``unique_from_file``,
 ``query_file``/``query_records``, ``ClassifyJoiner`` and
 ``intersection_size_host``, plus ``query_hits``, the per-read hit counts
-under ``query_file``.  For counting, the host
+under ``query_file``, and ``staged_batches``, which ``count_file`` and
+``commands.sketch.sketch_file`` share.  For counting, the host
 packs FASTA/FASTQ records into wire-format batches on a prefetch thread
 (``host.py``) and stages them to the device; the device extracts and
 sorts each batch into a raw run of canonical keys, accumulates runs in an
@@ -28,6 +29,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from . import _kernels
 from .errors import ContextError
 from .host import (
     CountAccumulator,
@@ -146,8 +148,21 @@ class DeviceCountTable:
         self._spill()
         return self._acc.result()
 
+    def warm(self) -> None:
+        """Ready the device for this k before the first real batch: load
+        the kernel library (an nvcc build on a fresh checkout) and run one
+        small batch through a scratch table, so each kernel and torch op of
+        the path has been loaded and launched once.  This table stays
+        empty."""
+        if self.device.type == "cuda":
+            _kernels.lib()
+        scratch = DeviceCountTable(self.k, self.device)
+        rng = np.random.default_rng(self.k)
+        scratch.update(rng.integers(0, 4, 1 << 16, dtype=np.uint8))
+        scratch.result()
 
-def _staged_batches(path, k: int, normalize: bool, batch: int, device):
+
+def staged_batches(path, k: int, normalize: bool, batch: int, device):
     """Parse, wire-pack and stage batches to the device; run on the
     prefetch thread, so the host-to-device copy is enqueued before the
     consumer needs the batch."""
@@ -169,7 +184,7 @@ def count_file(
     positions = 0
     t0 = time.monotonic()
     last_log = t0
-    batches = _staged_batches(path, k, normalize, default_batch(device), device)
+    batches = staged_batches(path, k, normalize, default_batch(device), device)
     for lanes, inv_words, size, n in _prefetch(batches):
         table.update_packed(lanes, inv_words, size, n)
         positions += n

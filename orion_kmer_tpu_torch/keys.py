@@ -3,8 +3,9 @@
 A canonical k-mer is one ``torch.int64``: its u64 value XOR 2^63, so that
 signed int64 order equals u64 order (torch has no ordered compare, shift
 or searchsorted for uint64 on the CPU).  The all-ones SENTINEL maps to
-``INT64_MAX``.  Validity is never inferred from the sentinel: every
-stream carries its valid count explicitly.
+``INT64_MAX``.  A stream carries its valid count explicitly; validity is
+read from the sentinel only for K1's canonical keys, which never equal it
+(``ops/sketch.py``).
 
 The JAX package keeps keys as u32 planes: (hi, lo) for k >= 25, a
 narrowed (t, b) pair for k = 17..24 and one lo plane for k <= 16.  The

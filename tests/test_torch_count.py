@@ -138,9 +138,14 @@ def test_count_bad_k_error_path(tmp_path, capsys):
 
 
 def test_unported_subcommand_exits_2(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        port_cpu(["profile", "-k", "5", "--manifest", "m.json", "-o", str(tmp_path / "x")])
-    assert e.value.code == 2
+    """Every subcommand of the JAX CLI is ported, so only one that neither
+    package has is rejected by argparse (exit 2); profile now runs and
+    fails on its missing manifest, as the JAX CLI does."""
+    for main in (jax_main, port_cpu):
+        with pytest.raises(SystemExit) as e:
+            main(["frobnicate", "-k", "5"])
+        assert e.value.code == 2
+        assert main(["profile", "-k", "5", "--manifest", str(tmp_path / "m.json"), "-o", str(tmp_path / "x")]) == 1
 
 
 @pytest.mark.parametrize("k", [15, 21, 31])

@@ -20,23 +20,48 @@ from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, write_file
 PKG = Path(orion_kmer_tpu_torch.__file__).resolve().parent
 
 SCRIPT = """
-import sys
+import json, sys, threading
+from orion_kmer_tpu_torch import server
 from orion_kmer_tpu_torch.cli import main
+from orion_kmer_tpu_torch.commands import cohort
+
+class Client:  # offline metadata client for cohort summarize
+    def sra_metadata(self, accessions, detailed=True):
+        return [{"biosample": "B1", "organism_name": "gut", "instrument_model": "MinION"}]
+
+cohort.make_client = Client
 fa, fq, d = sys.argv[1:]
+with open(d + "/m.json", "w") as f:
+    json.dump([{"sample": "S", "files": [fa, fq]}], f)
+with open(d + "/hyb.json", "w") as f:
+    json.dump([{"biosample": "B1"}], f)
 runs = [
     ["count", "-k", "5", "-i", fa, "-o", d + "/o.tsv"],
     ["build", "-k", "5", "-g", fa, fq, "-o", d + "/db.db"],
     ["compare", "--db1", d + "/db.db", "--db2", d + "/db.db", "-o", d + "/cmp.json"],
     ["query", "-d", d + "/db.db", "-r", fq, "-o", d + "/ids.txt"],
     ["classify", "-i", fa, "-d", d + "/db.db", "-o", d + "/cl.json", "--output-tsv", d + "/cl.tsv"],
+    ["sketch", "-k", "5", "--scaled", "2", "-i", fa, fq, "-o", d + "/s.sig"],
+    ["sketch-compare", "-s", d + "/s.sig", "-o", d + "/sc.json"],
+    ["profile", "-k", "5", "--manifest", d + "/m.json", "-d", d + "/db.db", "--scaled", "2", "-o", d + "/p.json"],
+    ["cohort", "summarize", "-i", d + "/hyb.json", "-o", d + "/sum.tsv"],
 ]
 rcs = [main(["--device", "cpu", *argv]) for argv in runs]
+ready = threading.Event()
+t = threading.Thread(target=server.serve, args=(d + "/s.sock", "cpu"), kwargs={"on_ready": ready.set})
+t.start()
+ready.wait(60)
+rcs.append(main(["--server", d + "/s.sock", "count", "-k", "5", "-i", fa, "-o", d + "/served.tsv"]))
+main(["--server", d + "/s.sock", "shutdown"])
+t.join(60)
 banned = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "orion_kmer_tpu" or m.startswith("orion_kmer_tpu.")
 )
 print(rcs, banned)
 """
+
+OUTPUTS = ("db.db", "cmp.json", "ids.txt", "cl.json", "cl.tsv", "s.sig", "sc.json", "p.json", "sum.tsv")
 
 
 def test_every_subcommand_runs_without_jax_or_the_jax_package(tmp_path):
@@ -50,15 +75,17 @@ def test_every_subcommand_runs_without_jax_or_the_jax_package(tmp_path):
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[0, 0, 0, 0, 0] []"
+    assert proc.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []"
     vals = np.concatenate(
         [codec.extract_kmers_np(codec.seq_to_codes(r.seq), 5) for r in parse_fastx_bytes(SAMPLE1_FASTA.encode())]
     )
     uniq, counts = np.unique(vals, return_counts=True)
     expected = "".join(f"{codec.u64_to_seq(int(v), 5).decode()}\t{c}\n" for v, c in zip(uniq, counts))
     assert (tmp_path / "o.tsv").read_text() == expected
-    for name in ("db.db", "cmp.json", "ids.txt", "cl.json", "cl.tsv"):
+    assert (tmp_path / "served.tsv").read_text() == expected
+    for name in OUTPUTS:
         assert (tmp_path / name).exists(), name
+    assert not (tmp_path / "s.sock").exists()
 
 
 def test_no_jax_or_jax_package_import_in_sources():
@@ -66,7 +93,13 @@ def test_no_jax_or_jax_package_import_in_sources():
     sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
-    assert len(sources) > 20
+    names = {str(p.relative_to(PKG)) for p in sources if PKG in p.parents}
+    new_modules = {"server.py", "ops/hash.py", "ops/sketch.py", "commands/sketch.py", "commands/profile.py",
+                   "commands/cohort.py", *(f"cohort/{m}.py" for m in
+                                           ("__init__", "client", "entrez", "find_hybrid", "manifest",
+                                            "platforms", "summarize"))}
+    assert new_modules <= names
+    assert len(sources) > 30
 
 
 def test_default_device_without_a_card_fails_and_computes_nothing(tmp_path, monkeypatch, capsys):
