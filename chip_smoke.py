@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--gbp G]
 
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
+    python3 chip_smoke.py --sharded-only   # phases 1-3, 5, 10 and 11, no result line
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: the card's name and power limit, native ingest status;
@@ -15,14 +16,17 @@ Phases, in order; any failure raises and exits non-zero:
      size) against their plain torch versions on the card, at the main
      path's shapes, exactly, with device times from CUDA events around
      back-to-back calls (median_ms), beside the library call that computes
-     the same function and the card's bound; and the sketch's hash and
-     keep chain (torch ops) per 2^24 batch;
+     the same function and the card's bound; the sketch's hash and keep
+     chain (torch ops) per 2^24 batch; the sharded count's route step
+     (owner chain and 4 K3 passes over a shard's 2^22-position block);
+     and, where more than one card is visible, every kernel on the last
+     card while the first stays current;
   4. exact run: `count` at k = 15, 21, 31, 32 (once with small batches
      and a lowered device-table bound, so the forest deepens and the table
      spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
      and `-c 5` and `classify -m 2 --output-tsv`, all through the CLI in
-     subprocesses, exactly against the numpy oracle of the port's own
-     codec.py;
+     subprocesses (four at a time), exactly against the numpy oracle of
+     the port's own codec.py;
   5. realistic run: `count -k 31 -m 2 --histogram` over a synthetic
      E. coli-like FASTQ (a 4.64 Mbp genome, 150 bp reads, 0.2 %
      substitutions, a few N runs; --gbp of sequence), in process, with the
@@ -50,7 +54,15 @@ Phases, in order; any failure raises and exits non-zero:
      file, against the oracle (see phase_profile);
   9. serve: `serve --warm-k 31` in a subprocess; a `count` and a `sketch`
      forwarded twice each, byte-equal to direct runs, with the walls of
-     the first and second request; shutdown removes the socket.
+     the first and second request; shutdown removes the socket;
+ 10. sharded count: the phase-5 command with ORION_KMER_SHARDS=4 (TSV and
+     histogram byte-equal to phase 5's), ORION_KMER_SHARDS=3 on the 9 Mbp
+     FASTA at k = 21 against the oracle, and `sharded_count` and
+     `ShardedCountTable` on the T*40 k = 32 edge; the shards take one card
+     each where the host has them and share the card otherwise;
+ 11. two processes: `run_two_process_smoke` on the card (two ranks over
+     gloo sharing it, or nccl with a card each), and a process group of
+     one rank over nccl, each against the oracle.
 The last line is the result JSON; the kernel JSON and the card's
 `nvidia-smi` name and power limit are printed before it.  Needs no
 network and no JAX.
@@ -76,6 +88,13 @@ HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.monotonic()
+
+
+def passed(phase: str) -> None:
+    log(f"{phase}: passed ({time.monotonic() - T_START:.0f} s since the start)")
 
 
 def check(cond: bool, what: str) -> None:
@@ -352,8 +371,10 @@ def phase_kernels(np, torch, codec, dev, rng):
     kernel, its record for the JSON line: kernel, plain and library times,
     the bound from the bytes it must move, and the largest error."""
     from orion_kmer_tpu_torch.host import pack_for_transfer
+    from orion_kmer_tpu_torch.keys import SENTINEL_KEY
     from orion_kmer_tpu_torch.ops import compact, extract, merge, sketch, sort
     from orion_kmer_tpu_torch.ops import hash as hash_ops
+    from orion_kmer_tpu_torch.parallel import sharded
 
     rec = {}
 
@@ -491,9 +512,70 @@ def phase_kernels(np, torch, codec, dev, rng):
     check(err == 0, "K4 agrees with its plain version")
     rec["K4"]["max_abs_err"] = err
     torch.cuda.synchronize()
+
+    # the sharded count's route step on one shard's block of a 2^24 batch
+    # cut four ways: the owner chain (mix32, elementwise torch ops) and one
+    # K3 pass per destination.  Not a kernel of its own; its bound is the
+    # keys read once and every valid key written once.
+    n = 1 << 22
+    lanes, inv = pack_for_transfer(codec.seq_to_codes(codes[: n - 5]), n)
+    keys, n_valid = extract.extract_keys(
+        torch.from_numpy(lanes.view(np.int32)).to(dev), torch.from_numpy(inv.view(np.int32)).to(dev), 31, n - 7)
+    valid = keys != SENTINEL_KEY
+    owner = sharded.owner_of(keys, 4)
+    segments = sharded.route_to_owners(keys, 4)
+    for d, seg in enumerate(segments):
+        check(torch.equal(seg, keys[valid & (owner == d)]), f"route step: destination {d} == keys[valid & (owner == d)]")
+    check(sum(seg.shape[0] for seg in segments) == int(n_valid), "route step: every valid key routed once")
+    t_r = median_ms(torch, lambda: sharded.route_keys(keys, 4))
+    t_o = median_ms(torch, lambda: (keys != SENTINEL_KEY, sharded.owner_of(keys, 4)))
+    t_c = median_ms(torch, lambda: [compact.compact([keys], valid & (owner == d)) for d in range(4)])
+    log(f"route step (not a kernel), 2^22 keys, k = 31, S = 4: {t_r:.4f} ms, of which the owner chain "
+        f"{t_o:.4f} ms and the 4 masks and K3 passes {t_c:.4f} ms; bound {bound_ms(n * 8 + int(n_valid) * 8):.4f} ms")
+    del keys, valid, owner, segments
+    torch.cuda.synchronize()
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        kernels_on_card(np, torch, codec, torch.device("cuda", n_cards - 1), rng)
+    else:
+        log("one card visible: the kernels' run on another card than the current one is skipped")
     log(f"launch counters after phase 3: K1 {extract.launches} K2 {merge.launches} "
         f"K3 {compact.launches} K4 {sort.launches}")
     return rec
+
+
+def kernels_on_card(np, torch, codec, dev, rng):
+    """K1-K4 against their plain versions with their operands on `dev`
+    while another card is the current one: each launch must follow its
+    operands (K1 also opts in to its shared memory per device)."""
+    from orion_kmer_tpu_torch.host import pack_for_transfer
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+
+    check(torch.cuda.current_device() != dev.index, f"{dev} is not the current device")
+    n = 1 << 20
+    codes = np.frombuffer(BASES, np.uint8)[rng.integers(0, 4, n)].copy()
+    lanes, inv = pack_for_transfer(codec.seq_to_codes(codes), n)
+    L = torch.from_numpy(lanes.view(np.int32)).to(dev)
+    I = torch.from_numpy(inv.view(np.int32)).to(dev)
+    err = 0.0
+    for k in (17, 31, 32):
+        gk, gn = extract.extract_keys(L, I, k, n - 3)
+        pk, pn = extract.extract_keys_plain(L, I, k, n - 3)
+        err = max(err, max_abs_err(torch, gk, pk), abs(int(gn) - int(pn)))
+    a = torch.sort(torch.randint(-(1 << 40), 1 << 40, (n,), device=dev)).values
+    b = torch.sort(torch.randint(-(1 << 40), 1 << 40, (n + 77,), device=dev)).values
+    err = max(err, max_abs_err(torch, merge.merge(a, b)[0], merge.merge_plain(a, b)[0]))
+    keep = torch.rand(n, device=dev) < 0.5
+    (g0,), gn = compact.compact([a], keep)
+    (p0,), pn = compact.compact_plain([a], keep)
+    check(int(gn) == int(pn), f"K3 kept count on {dev}")
+    err = max(err, max_abs_err(torch, g0[: int(gn)], p0))
+    err = max(err, max_abs_err(torch, sort.sort_pairs(b[:12289].flip(0)), b[:12289]))
+    torch.cuda.synchronize(dev)
+    check(err == 0, f"K1-K4 agree with their plain versions on {dev}")
+    check(torch.cuda.current_device() != dev.index, "the current device is unchanged")
+    log(f"K1-K4 with operands on {dev} while cuda:{torch.cuda.current_device()} is current: exact")
 
 
 def run_cli(args, env_extra=None):
@@ -557,6 +639,18 @@ def check_classify(np, json_path: Path, tsv_path: Path, input_path, db_path, ref
     return len(lines) - 1
 
 
+def run_clis(jobs) -> float:
+    """Run CLI calls ((args, env) pairs) as subprocesses, four at a time
+    (each spends most of its wall starting Python and CUDA); returns the
+    wall of the whole stage."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda job: run_cli(*job), jobs))
+    return time.monotonic() - t0
+
+
 def phase_exact(np, codec, work: Path, rng):
     from orion_kmer_tpu_torch.db import KmerDb
 
@@ -567,25 +661,30 @@ def phase_exact(np, codec, work: Path, rng):
     tedge.write_bytes(b">t\n" + b"T" * 40 + b"\n")
     small = work / "small.fasta"
     small_recs = write_multirecord_fasta(np, small, rng, 300_000)
+    fq = work / "q.fastq"
+    reads = write_query_reads(np, fq, rng, records)
 
+    # stage 1: the counts and the builds, which need nothing of each other
     runs = [(k, {}) for k in (15, 21, 31, 32)]
     runs.append((31, {"ORION_KMER_BATCH": "1048576", "ORION_KMER_DEVICE_TABLE_MAX": str(1 << 21)}))
-    for k, env in runs:
-        t0 = time.monotonic()
-        out = work / f"count_k{k}.tsv"
-        run_cli(["count", "-k", k, "-i", fa, "-o", out], env)
-        wall = time.monotonic() - t0
-        vals, counts = oracle_counts(np, codec, records, k)
-        check(out.read_bytes() == render_tsv(np, vals, counts, k), f"count k={k} {env} TSV == oracle")
-        log(f"count k={k} {env or ''}: {vals.shape[0]} k-mers, byte-exact, {wall:.1f} s with process start")
-
-    out = work / "t.tsv"
-    run_cli(["count", "-k", 32, "-i", tedge, "-o", out])
-    check(out.read_bytes() == b"A" * 32 + b"\t9\n", "T*40 at k=32")
+    count_out = [work / f"count_k{k}_{i}.tsv" for i, (k, _) in enumerate(runs)]
+    db, small_db = work / "db.db", work / "small.db"
+    wall = run_clis(
+        [(["count", "-k", k, "-i", fa, "-o", out], env) for (k, env), out in zip(runs, count_out)]
+        + [(["count", "-k", 32, "-i", tedge, "-o", work / "t.tsv"], {}),
+           (["build", "-k", 21, "-g", fa, small, "-o", db], {}),
+           (["build", "-k", 21, "-g", small, "-o", small_db], {})]
+    )
+    log(f"5 counts, the T*40 count and 2 builds as 8 processes, 4 at a time: {wall:.1f} s")
+    oracle_tsv = {}
+    for (k, env), out in zip(runs, count_out):
+        if k not in oracle_tsv:
+            oracle_tsv[k] = render_tsv(np, *oracle_counts(np, codec, records, k), k)
+        check(out.read_bytes() == oracle_tsv[k], f"count k={k} {env} TSV == oracle")
+        log(f"count k={k} {env or ''}: {oracle_tsv[k].count(10)} k-mers, byte-exact")
+    check((work / "t.tsv").read_bytes() == b"A" * 32 + b"\t9\n", "T*40 at k=32")
     log("count k=32 T*40 edge: exact")
 
-    db = work / "db.db"
-    run_cli(["build", "-k", 21, "-g", fa, small, "-o", db])
     ref = KmerDb(k=21)
     for name, recs in (("big.fasta", records), ("small.fasta", small_recs)):
         ref.add_reference(name, oracle_counts(np, codec, recs, 21)[0])
@@ -593,37 +692,34 @@ def phase_exact(np, codec, work: Path, rng):
     check(KmerDb.load(db).total_unique_kmers() == ref.total_unique_kmers(), "db reload")
     log(f"build -k 21: {ref.total_unique_kmers()} unique k-mers, byte-exact")
 
-    # the joins on the same DB
+    # stage 2: the joins on that DB
+    cl_out, cl_tsv = work / "cl.json", work / "cl.tsv"
+    wall = run_clis(
+        [(["compare", "--db1", db, "--db2", other, "-o", work / f"cmp_{other.stem}.json"], {}) for other in (db, small_db)]
+        + [(["query", "-d", db, "-r", fq, "-o", work / f"q{c}.txt", "-c", c], {}) for c in (1, 5)]
+        + [(["classify", "-i", fq, "-d", db, "-o", cl_out, "--min-kmer-frequency", 2, "--output-tsv", cl_tsv], {})]
+    )
+    log(f"2 compares, 2 queries and classify as 5 processes, 4 at a time: {wall:.1f} s")
     union = ref.get_all_kmers_unified()
-    small_db = work / "small.db"
-    run_cli(["build", "-k", 21, "-g", small, "-o", small_db])
     for other, other_set in ((db, union), (small_db, ref.references["small.fasta"])):
-        out = work / "cmp.json"
-        run_cli(["compare", "--db1", db, "--db2", other, "-o", out])
-        got = json.loads(out.read_text())
+        got = json.loads((work / f"cmp_{other.stem}.json").read_text())
         inter = int(np.intersect1d(union, other_set).shape[0])
         u = union.shape[0] + other_set.shape[0] - inter
         check(got["intersection_size"] == inter and got["union_size"] == u and got["jaccard_index"] == inter / u,
               f"compare with {other.name} == np.intersect1d")
         log(f"compare db.db {other.name}: intersection {inter}, union {u}, exact")
 
-    fq = work / "q.fastq"
-    reads = write_query_reads(np, fq, rng, records)
     hits = window_hits(np, codec, reads, 21, union)
     for c in (1, 5):
-        out = work / f"q{c}.txt"
-        run_cli(["query", "-d", db, "-r", fq, "-o", out, "-c", c])
         exp = b"".join(b"q%d\n" % i for i, (r, h) in enumerate(zip(reads, hits.tolist())) if h >= c and len(r) >= 21)
-        check(out.read_bytes() == exp, f"query -c {c} == oracle")
-        n_hit = exp.count(b"\n")
-        log(f"query -c {c}: {n_hit} of {len(reads)} reads, exact")
+        check((work / f"q{c}.txt").read_bytes() == exp, f"query -c {c} == oracle")
+        log(f"query -c {c}: {exp.count(10)} of {len(reads)} reads, exact")
 
-    out, tsv = work / "cl.json", work / "cl.tsv"
-    run_cli(["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
     vals, counts = oracle_counts(np, codec, reads, 21)
     keep = counts >= 2
-    n_refs = check_classify(np, out, tsv, fq, db, ref.references, vals[keep], counts[keep])
+    n_refs = check_classify(np, cl_out, cl_tsv, fq, db, ref.references, vals[keep], counts[keep])
     log(f"classify -m 2: {int(keep.sum())} input k-mers, {n_refs} references, exact")
+    return oracle_tsv[21]
 
 
 def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
@@ -1006,12 +1102,161 @@ def phase_serve(torch, work: Path, dev, count_input, sketch_inputs):
     return runs
 
 
+def drive_sharded(torch, n_shards: int, argv):
+    """`drive` with ORION_KMER_SHARDS set: (wall s, launches, peak device
+    bytes summed over the cards, the run's stats_report as logged by
+    ``engine.count_file``)."""
+    import ast
+    import logging
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    engine_log = logging.getLogger("orion_kmer_tpu_torch.engine")
+    level, propagate, before = engine_log.level, engine_log.propagate, os.environ["ORION_KMER_SHARDS"]
+    engine_log.addHandler(handler)
+    engine_log.setLevel(logging.INFO)
+    engine_log.propagate = False
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+    os.environ["ORION_KMER_SHARDS"] = str(n_shards)
+    try:
+        wall, launches, _ = drive(torch, cards[0], argv)
+    finally:
+        os.environ["ORION_KMER_SHARDS"] = before
+        engine_log.removeHandler(handler)
+        engine_log.setLevel(level)
+        engine_log.propagate = propagate
+    for card in cards:
+        torch.cuda.synchronize(card)
+    peak = sum(torch.cuda.max_memory_allocated(card) for card in cards)
+    reports = [m for m in seen if m.startswith("sharded count: ")]
+    check(len(reports) == 1, "the run went through the sharded table once")
+    stats = ast.literal_eval(reports[0][len("sharded count: "):])
+    check(stats["n_shards"] == n_shards and stats["route_retries"] == 0, "the sharded table's shard count")
+    check(stats["a2a_bytes_sent"] == 8 * stats["recv_sort_elements"], "8 bytes routed for every key received")
+    check((stats["a2a_bytes_ici"] > 0) == (len(set(stats["devices"])) > 1),
+          "bytes change device exactly when the shards sit on several")
+    return wall, launches, peak, stats
+
+
+def phase_sharded(np, torch, codec, work: Path, fq, count_tsv, n_windows, big_fasta, oracle_tsv21):
+    """Phase 10: the sharded count through the CLI and the library entries.
+    Returns the launches of each run."""
+    from orion_kmer_tpu_torch.parallel import ShardedCountTable, make_mesh, sharded_count
+
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh(4)
+    log(f"sharded count: 4 shards on {[str(d) for d in mesh]} "
+        f"({'one card each' if n_cards >= 4 else f'sharing {n_cards} card(s)'})")
+    # reckoned peak on one card, S = 4, 2^24-position batches, flush at 2^28
+    # positions: the four forests hold the flush window's keys between them
+    # (2^28 x 8 B = 2 GiB); one shard at a time encodes its quarter (keys,
+    # positions, shifted keys and two compaction outputs of 2^26 x 8 B, 2.5
+    # GiB with the masks); the tables hold the distinct k-mers (16 B each);
+    # a batch's exchange holds 2^24 keys three times (K1's, the routed
+    # buffers, the received) for 0.4 GiB
+    log("sharded count, reckoned peak with the shards on one card: 2 GiB of forests + 2.5 GiB for one "
+        "shard's flush + tables + 0.4 GiB of exchange buffers, about 5 to 6 GiB; the single table peaks at 10.6")
+    runs = {}
+    out, hist = work / "reads_s4.tsv", work / "reads_s4.hist"
+    wall, launches, peak, stats = drive_sharded(torch, 4, [
+        "count", "-k", 31, "-m", 2, "--histogram", hist, "-i", fq, "-o", out])
+    check(out.read_bytes() == count_tsv.read_bytes(), "sharded count TSV == phase 5's bytes")
+    check(hist.read_bytes() == count_tsv.with_suffix(".hist").read_bytes(), "sharded count histogram == phase 5's bytes")
+    report("count -k 31 -m 2 --histogram, ORION_KMER_SHARDS=4 (TSV and histogram equal to phase 5's)",
+           wall, launches, peak, f", {n_windows / wall / 1e6:.3f} M k-mers/s")
+    log(f"stats_report: {stats}")
+    check(stats["positions"] > n_windows, "every position of the reads went through the sharded table")
+    for name in ("K1", "K2", "K3"):
+        check(launches[name] > 0, f"{name} launched in the sharded count")
+    runs["count, 4 shards"] = launches
+
+    out = work / "big_s3.tsv"
+    wall, launches, peak, stats = drive_sharded(torch, 3, ["count", "-k", 21, "-i", big_fasta, "-o", out])
+    check(out.read_bytes() == oracle_tsv21, "count k=21, 3 shards, TSV == oracle")
+    report("count -k 21 of the 9 Mbp FASTA, ORION_KMER_SHARDS=3 (byte-exact)", wall, launches, peak)
+    log(f"stats_report: {stats}")
+    runs["count, 3 shards"] = launches
+
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.launches = 0
+    codes = codec.seq_to_codes(b"T" * 40)
+    for n_shards in (3, 4):
+        vals, counts = sharded_count(codes, codes > 3, 32, make_mesh(n_shards))
+        check(vals.tolist() == [0] and counts.tolist() == [9], f"sharded_count, T*40 at k=32, {n_shards} shards")
+        table = ShardedCountTable(32, make_mesh(n_shards))
+        table.update(codes)
+        table.flush()
+        table.update(codes)
+        vals, counts = table.result()
+        check(vals.tolist() == [0] and counts.tolist() == [18], f"ShardedCountTable, T*40 twice at k=32, {n_shards} shards")
+    runs["sharded T*40 edge"] = {name: mod.launches for name, mod in kernels.items()}
+    log(f"sharded_count and ShardedCountTable on the T*40 k = 32 edge: exact; launches {runs['sharded T*40 edge']}")
+    return runs
+
+
+NCCL_ONE_RANK = """
+import json, sys
+import numpy as np
+import torch, torch.distributed as dist
+from orion_kmer_tpu_torch import codec
+from orion_kmer_tpu_torch.ops import compact, extract
+from orion_kmer_tpu_torch.parallel.distributed import multihost_sharded_count
+
+dist.init_process_group("nccl", init_method="tcp://localhost:" + sys.argv[1], world_size=1, rank=0)
+rng = np.random.default_rng(5)
+codes = rng.integers(0, 4, size=1 << 20, dtype=np.uint8)
+codes[rng.random(codes.shape[0]) < 0.001] = 255
+stats = {}
+vals, counts = multihost_sharded_count(codes, codes > 3, 31, "cuda", stats=stats)
+exp_v, exp_c = np.unique(codec.extract_kmers_np(codes, 31), return_counts=True)
+assert np.array_equal(vals, exp_v) and np.array_equal(counts, exp_c)
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print(json.dumps({"unique": int(vals.shape[0]), "K1": extract.launches, "K3": compact.launches, "stats": stats}))
+"""
+
+
+def phase_two_processes(torch, work: Path):
+    """Phase 11: two ranks on the card(s) through the environment
+    contract, then one rank over nccl, each against the oracle."""
+    import socket
+
+    from orion_kmer_tpu_torch.parallel.distributed import choose_backend, run_two_process_smoke
+
+    t0 = time.monotonic()
+    res = run_two_process_smoke(work / "two_processes", timeout=300.0, device="cuda")
+    st = res["a2a_stats"]
+    check(st["backend"] == choose_backend("cuda", 2), "the two ranks took the backend the card count calls for")
+    log(f"two processes on {torch.cuda.device_count()} card(s) over {st['backend']}: both ranks == oracle, "
+        f"{res['unique']} unique 9-mers, {time.monotonic() - t0:.1f} s with process start; {st}")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", NCCL_ONE_RANK, str(port)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"one rank over nccl: {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["stats"]["backend"] == "nccl" and got["K1"] == 1 and got["K3"] > 0, "the nccl rank launched K1 and K3")
+    log(f"one rank over nccl, 2^20 positions at k = 31: == oracle, {got['unique']} unique, "
+        f"{time.monotonic() - t0:.1f} s with process start; {got}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gbp", type=float, default=0.5, help="Gbp of reads in the realistic run")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build and kernels), printing no result line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="after phase 3 run only the phase-5 count and phases 10-11 (the sharded count and "
+                         "the two-process run), printing no result line: the quick check on a machine with several cards")
     args = ap.parse_args()
 
     import torch
@@ -1041,7 +1286,7 @@ def main() -> int:
     rec = phase_kernels(np, torch, codec, dev, rng)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the CLI subprocesses of phase 4 share the card
-    log("phase 3 kernels: exact")
+    passed("phase 3 kernels (exact)")
     if args.kernels_only:
         log(f"{card}; stopped after phase 3 (--kernels-only): no result line")
         return 0
@@ -1049,28 +1294,46 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    # phases 4 to 9 hold the single table whatever the card count (on a host
+    # with several cards ORION_KMER_SHARDS=auto would shard them); phase 10
+    # sets the shard count itself
+    os.environ["ORION_KMER_SHARDS"] = "0"
     try:
-        phase_exact(np, codec, work, rng)
-        log("phase 4 exact run: passed")
+        if args.sharded_only:
+            records = write_multirecord_fasta(np, work / "big.fasta", rng, 9_000_000)
+            oracle_tsv21 = render_tsv(np, *oracle_counts(np, codec, records, 21), 21)
+        else:
+            oracle_tsv21 = phase_exact(np, codec, work, rng)
+            passed("phase 4 exact run")
         launches, fq, count_tsv, n_reads, n_windows, genome, sample = phase_realistic(
             np, torch, codec, work, rng, args.gbp, dev
         )
-        log("phase 5 realistic run: passed")
-        runs, refs, db, table_ge2 = phase_joins(
-            np, torch, codec, work, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample
-        )
-        log("phase 6 realistic joins: passed")
-        sketch_runs, reads_sketch = phase_sketch(np, torch, codec, work, rng, dev, fq, 150 * n_reads, table_ge2)
-        runs.update(sketch_runs)
-        log("phase 7 sketch: passed")
-        runs.update(phase_profile(np, torch, codec, work, rng, dev, fq, n_windows, genome, refs, db, reads_sketch))
-        log("phase 8 profile: passed")
-        runs.update(phase_serve(torch, work, dev, work / "big.fasta", sorted(work.glob("clade0_g*.fa"))[:2]))
-        log("phase 9 serve: passed")
+        passed("phase 5 realistic run")
+        runs = {}
+        if not args.sharded_only:
+            runs, refs, db, table_ge2 = phase_joins(
+                np, torch, codec, work, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample
+            )
+            passed("phase 6 realistic joins")
+            sketch_runs, reads_sketch = phase_sketch(np, torch, codec, work, rng, dev, fq, 150 * n_reads, table_ge2)
+            runs.update(sketch_runs)
+            passed("phase 7 sketch")
+            runs.update(phase_profile(np, torch, codec, work, rng, dev, fq, n_windows, genome, refs, db, reads_sketch))
+            passed("phase 8 profile")
+            runs.update(phase_serve(torch, work, dev, work / "big.fasta", sorted(work.glob("clade0_g*.fa"))[:2]))
+            passed("phase 9 serve")
+        runs.update(phase_sharded(np, torch, codec, work, fq, count_tsv, n_windows, work / "big.fasta", oracle_tsv21))
+        passed("phase 10 sharded count")
+        phase_two_processes(torch, work)
+        passed("phase 11 two processes")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches: K1-K3 summed over the command runs of phases 5 to 9; K4,
+    if args.sharded_only:
+        log(f"{card}; ran phases 1-3, 5, 10 and 11 (--sharded-only): no result line")
+        return 0
+
+    # launches: K1-K3 summed over the in-process runs of phases 5 to 10; K4,
     # which no command reaches, from its entry's run
     runs["count"] = launches
     for name, r in runs.items():

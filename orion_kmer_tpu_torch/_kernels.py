@@ -8,8 +8,10 @@ happens once, at first use, into
 from the sources in the repository and nothing else.  Importing this
 module builds nothing: the CPU path never calls ``lib()``.
 
-Each C entry returns ``cudaGetLastError()`` after its launches; ``check``
-turns a non-zero code into an exception.  nvcc runs with ``-Xptxas -v``;
+Each C entry launches on the thread's current CUDA device and returns
+``cudaGetLastError()`` after its launches; the wrappers of ``ops/`` call
+them under ``on_device(operand)``, and ``check`` turns a non-zero code
+into an exception.  nvcc runs with ``-Xptxas -v``;
 its report (registers, shared memory and spills of every kernel) is kept
 beside the library as ``ptxas.txt`` and parsed by ``ptxas_report()``.
 """
@@ -180,6 +182,19 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """Context that makes ``t``'s device the thread's current CUDA device.
+
+    The C entries launch on whatever device is current and read that
+    device's properties (SM count, per-device function attributes), so
+    every wrapper calls them inside this context: a kernel then runs on
+    the card that holds its operands, whichever card the caller has
+    current."""
+    import torch
+
+    return torch.cuda.device(t.device)
 
 
 def require_cuda(name: str, *tensors) -> None:

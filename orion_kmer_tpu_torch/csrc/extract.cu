@@ -175,12 +175,17 @@ constexpr std::array<KernelFn, sizeof...(I)> kernel_table(std::integer_sequence<
 }
 
 const std::array<KernelFn, 32> kKernels = kernel_table(std::make_integer_sequence<int, 32>{});
-bool g_configured[32] = {};
+// cudaFuncSetAttribute holds for one device, so the opt-in to kSmemBytes of
+// dynamic shared memory is remembered per (device, k); a device past the
+// table is configured on every call.
+constexpr int kMaxDevices = 64;
+bool g_configured[kMaxDevices][32] = {};
 
 }  // namespace
 
-// Blocks of the persistent grid for n_lanes lanes (the length of the
-// block_valid array okt_extract fills).
+// Blocks of the persistent grid for n_lanes lanes on the current device (the
+// length of the block_valid array okt_extract fills there).  The caller makes
+// the operands' device current before either entry.
 extern "C" int64_t okt_extract_blocks(int64_t n_lanes) {
   const int64_t n_tiles = (n_lanes * 16 + kTile - 1) / kTile;
   int dev = 0, sms = 0;
@@ -199,12 +204,15 @@ extern "C" int okt_extract(const void* lanes, const void* inv, int64_t n_lanes, 
   if (blocks < 0) return (int)cudaErrorInvalidDevice;
   if (blocks == 0) return 0;
   const KernelFn fn = kKernels[k - 1];
-  if (!g_configured[k - 1]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaErrorInvalidDevice;
+  const bool remembered = dev >= 0 && dev < kMaxDevices;
+  if (!remembered || !g_configured[dev][k - 1]) {
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    g_configured[k - 1] = true;
+    if (remembered) g_configured[dev][k - 1] = true;
   }
   fn<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const uint32_t*)lanes, (const uint32_t*)inv, n_lanes, n_positions, (int64_t*)keys,

@@ -127,6 +127,9 @@ extern "C" int64_t okt_sort_max_n() { return kMaxN; }
 
 // out[0:n] = in[0:n] sorted ascending, 1 <= n <= okt_sort_max_n().  One
 // cluster of n_pad / 2^11 CTAs; a launch the card refuses is an error.
+// Shared memory is static and the cluster size is a launch attribute, so
+// nothing is configured per device: the launch goes to the current device,
+// which the caller sets to the operands'.
 extern "C" int okt_sort(const void* in, int64_t n, void* out, void* stream) {
   if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
   int n_pad = kTile;

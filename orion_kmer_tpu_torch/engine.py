@@ -80,12 +80,19 @@ class DeviceCountTable:
     def __init__(self, k: int, device):
         self.k = k
         self.device = torch.device(device)
-        # capacity -> raw run (sorted keys, n_valid as a 0-d device tensor)
+        # forest level -> raw run (sorted keys, n_valid as a 0-d device tensor)
         self._runs: dict[int, tuple] = {}
         self._windows_since_flush = 0
         self._acc = CountAccumulator()
         # device-resident accumulated table: (keys, counts), exact length
         self._table: tuple | None = None
+        # launches and exact element counts per stage, from host-side
+        # lengths alone (no device fetch); ``ShardedCountTable.stats`` sums
+        # them over its shards
+        self.stats = dict.fromkeys(
+            ("merge_dispatches", "merge_bytes", "flush_dispatches", "rle_elements",
+             "fold_dispatches", "fold_elements", "spills", "host_link_bytes"), 0
+        )
 
     def update(self, codes: np.ndarray):
         """Fold one batch of 2-bit codes (255 = invalid) in."""
@@ -101,27 +108,36 @@ class DeviceCountTable:
     def update_packed(self, lanes, inv_words, size: int, n_windows: int):
         """Fold one wire-format batch in (size = 16 * len(lanes) positions,
         of which the first n_windows are real)."""
-        run = sort_canonical_packed(lanes, inv_words, self.k, n_windows)
-        cap = size
-        while cap in self._runs:
-            run = merge_runs(self._runs.pop(cap), run)
-            cap *= 2
-        self._runs[cap] = run
+        self.add_run(sort_canonical_packed(lanes, inv_words, self.k, n_windows), size)
         self._windows_since_flush += n_windows
         if self._windows_since_flush >= self.FLUSH_WINDOWS:
             self.flush()
 
+    def add_run(self, run, level: int):
+        """Add one ready raw run (ascending keys on this device, n_valid)
+        to the forest at ``level``, the batch's bucket: runs of one level
+        merge (K2, any lengths) into the next, binary-counter style.  The
+        caller decides when to flush."""
+        while level in self._runs:
+            prev = self._runs.pop(level)
+            self.stats["merge_dispatches"] += 1
+            self.stats["merge_bytes"] += 8 * (prev[0].shape[0] + run[0].shape[0])
+            run = merge_runs(prev, run)
+            level *= 2
+        self._runs[level] = run
+
     def _fold_into_table(self, keys, counts):
         """Merge one flush's RLE output into the device-resident table,
         spilling to the host accumulator at the capacity bound."""
+        self.stats["fold_dispatches"] += 1
+        if self._table is not None and self._table[0].shape[0] + keys.shape[0] > self.DEVICE_TABLE_MAX:
+            self._spill()
         if self._table is None:
+            self.stats["fold_elements"] += keys.shape[0]
             self._table = (keys, counts)
             return
         t_keys, t_counts = self._table
-        if t_keys.shape[0] + keys.shape[0] > self.DEVICE_TABLE_MAX:
-            self._spill()
-            self._table = (keys, counts)
-            return
+        self.stats["fold_elements"] += t_keys.shape[0] + keys.shape[0]
         self._table = combine_sorted_unique(t_keys, t_counts, keys, counts)
 
     def _spill(self):
@@ -129,6 +145,8 @@ class DeviceCountTable:
         if self._table is None:
             return
         keys, counts = self._table
+        self.stats["spills"] += 1
+        self.stats["host_link_bytes"] += 16 * keys.shape[0]
         if keys.shape[0]:
             self._acc.add(u64_from_keys(keys), counts.cpu().numpy())
         self._table = None
@@ -136,6 +154,8 @@ class DeviceCountTable:
     def flush(self):
         for cap in sorted(self._runs):
             keys, n_valid = self._runs[cap]
+            self.stats["flush_dispatches"] += 1
+            self.stats["rle_elements"] += keys.shape[0]
             ukeys, ucnt = rle_sorted(keys, n_valid)
             if ukeys.shape[0]:
                 self._fold_into_table(ukeys, ucnt)
@@ -173,21 +193,63 @@ def staged_batches(path, k: int, normalize: bool, batch: int, device):
         yield to_device(lanes, device), to_device(inv_words, device), size, n
 
 
+def _make_count_table(k: int, device):
+    """The count table for ``device``: ``DeviceCountTable`` on one device,
+    ``parallel.ShardedCountTable`` over several shards.
+
+    ``ORION_KMER_SHARDS``: ``auto`` (the default) = one shard per visible
+    card when ``device`` is CUDA and more than one card is visible, else
+    the single table; ``0`` = the single table; ``N`` > 1 = N logical
+    shards, round-robin over the visible cards (on a CPU device, N CPU
+    shards: what the tests run)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    mode = os.environ.get("ORION_KMER_SHARDS", "auto")
+    n_shards = 0
+    if mode == "auto":
+        n_shards = len(devices)
+    elif mode.isdigit():
+        n_shards = int(mode)
+    if n_shards > 1:
+        from .parallel import ShardedCountTable, make_mesh
+
+        return ShardedCountTable(k, make_mesh(n_shards, devices))
+    return DeviceCountTable(k, device)
+
+
 def count_file(
     path, k: int, device, normalize: bool = True
 ) -> tuple[np.ndarray, np.ndarray]:
     """Canonical k-mer counts of one file on ``device``: native parse ->
     prefetch (parse + pack + stage) -> device-resident accumulation ->
-    one fetch.  Returns (u64 values ascending, int64 counts)."""
+    one fetch.  Spread over several shards when ``_make_count_table`` says
+    so.  Returns (u64 values ascending, int64 counts)."""
     device = torch.device(device)
-    table = DeviceCountTable(k, device)
+    table = _make_count_table(k, device)
+    batch = default_batch(device)
+    if isinstance(table, DeviceCountTable):
+        batches = staged_batches(path, k, normalize, batch, device)
+
+        def fold(staged) -> int:
+            table.update_packed(*staged)
+            return staged[3]
+
+    else:
+        # the sharded table cuts, packs and stages each batch itself
+        batches = stream_file_batches(path, k, normalize=normalize, batch_positions=batch)
+
+        def fold(pb) -> int:
+            table.update(pb.codes)
+            return pb.codes.shape[0]
+
     positions = 0
     t0 = time.monotonic()
     last_log = t0
-    batches = staged_batches(path, k, normalize, default_batch(device), device)
-    for lanes, inv_words, size, n in _prefetch(batches):
-        table.update_packed(lanes, inv_words, size, n)
-        positions += n
+    for item in _prefetch(batches):
+        positions += fold(item)
         now = time.monotonic()
         if now - last_log >= 30.0:
             logger.info(
@@ -196,7 +258,10 @@ def count_file(
                 now - t0,
             )
             last_log = now
-    return table.result()
+    result = table.result()
+    if not isinstance(table, DeviceCountTable):
+        logger.info("sharded count: %s", table.stats_report())
+    return result
 
 
 def unique_from_file(path, k: int, device) -> np.ndarray:

@@ -42,22 +42,24 @@ def compact(planes, keep):
     dev = keep.device
     counts = torch.empty(lib.okt_compact_blocks(n), dtype=torch.int64, device=dev)
     stream = _kernels.stream_ptr(keep)
-    _kernels.check(
-        lib.okt_compact_count(keep.data_ptr(), n, counts.data_ptr(), stream),
-        "compact (count)",
-    )
+    with _kernels.on_device(keep):
+        _kernels.check(
+            lib.okt_compact_count(keep.data_ptr(), n, counts.data_ptr(), stream),
+            "compact (count)",
+        )
     incl = torch.cumsum(counts, 0)
     offsets = incl - counts
     outs = [torch.empty_like(p) for p in planes]
     x1 = planes[1].data_ptr() if len(planes) == 2 else None
     o1 = outs[1].data_ptr() if len(planes) == 2 else None
-    _kernels.check(
-        lib.okt_compact_scatter(
-            keep.data_ptr(), n, planes[0].data_ptr(), x1, offsets.data_ptr(),
-            outs[0].data_ptr(), o1, stream,
-        ),
-        "compact (scatter)",
-    )
+    with _kernels.on_device(keep):
+        _kernels.check(
+            lib.okt_compact_scatter(
+                keep.data_ptr(), n, planes[0].data_ptr(), x1, offsets.data_ptr(),
+                outs[0].data_ptr(), o1, stream,
+            ),
+            "compact (scatter)",
+        )
     launches += 1
     n_kept = incl[-1] if n else torch.zeros((), dtype=torch.int64, device=dev)
     return outs, n_kept

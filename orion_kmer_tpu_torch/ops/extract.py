@@ -43,15 +43,16 @@ def extract_keys(lanes, invalid_words, k: int, n_positions: int):
     global launches
     lib = _kernels.lib()
     keys = torch.empty(16 * W, dtype=torch.int64, device=lanes.device)
-    block_valid = torch.empty(
-        lib.okt_extract_blocks(W), dtype=torch.int32, device=lanes.device
-    )
-    _kernels.check(
-        lib.okt_extract(
-            lanes.data_ptr(), invalid_words.data_ptr(), W, k, n_positions,
-            keys.data_ptr(), block_valid.data_ptr(), _kernels.stream_ptr(lanes),
-        ),
-        "extract_keys",
-    )
+    with _kernels.on_device(lanes):  # the grid follows this card's SM count
+        block_valid = torch.empty(
+            lib.okt_extract_blocks(W), dtype=torch.int32, device=lanes.device
+        )
+        _kernels.check(
+            lib.okt_extract(
+                lanes.data_ptr(), invalid_words.data_ptr(), W, k, n_positions,
+                keys.data_ptr(), block_valid.data_ptr(), _kernels.stream_ptr(lanes),
+            ),
+            "extract_keys",
+        )
     launches += 1
     return keys, block_valid.sum(dtype=torch.int64)

@@ -48,16 +48,17 @@ def merge(a, b, pa=None, pb=None):
     split = torch.empty(
         lib.okt_merge_scratch(na + nb), dtype=torch.int64, device=a.device
     )
-    _kernels.check(
-        lib.okt_merge(
-            a.data_ptr(), na, b.data_ptr(), nb,
-            pa.data_ptr() if pa is not None else None,
-            pb.data_ptr() if pb is not None else None,
-            split.data_ptr(), out.data_ptr(),
-            pout.data_ptr() if pout is not None else None,
-            _kernels.stream_ptr(a),
-        ),
-        "merge",
-    )
+    with _kernels.on_device(a):
+        _kernels.check(
+            lib.okt_merge(
+                a.data_ptr(), na, b.data_ptr(), nb,
+                pa.data_ptr() if pa is not None else None,
+                pb.data_ptr() if pb is not None else None,
+                split.data_ptr(), out.data_ptr(),
+                pout.data_ptr() if pout is not None else None,
+                _kernels.stream_ptr(a),
+            ),
+            "merge",
+        )
     launches += 1
     return out, pout

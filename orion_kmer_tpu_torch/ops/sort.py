@@ -39,9 +39,10 @@ def sort_pairs(keys):
     if n == 0:
         return out
     global launches
-    _kernels.check(
-        _kernels.lib().okt_sort(keys.data_ptr(), n, out.data_ptr(), _kernels.stream_ptr(keys)),
-        "sort_pairs",
-    )
+    with _kernels.on_device(keys):
+        _kernels.check(
+            _kernels.lib().okt_sort(keys.data_ptr(), n, out.data_ptr(), _kernels.stream_ptr(keys)),
+            "sort_pairs",
+        )
     launches += 1
     return out

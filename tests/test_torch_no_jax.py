@@ -20,7 +20,7 @@ from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, write_file
 PKG = Path(orion_kmer_tpu_torch.__file__).resolve().parent
 
 SCRIPT = """
-import json, sys, threading
+import json, os, sys, threading
 from orion_kmer_tpu_torch import server
 from orion_kmer_tpu_torch.cli import main
 from orion_kmer_tpu_torch.commands import cohort
@@ -47,6 +47,9 @@ runs = [
     ["cohort", "summarize", "-i", d + "/hyb.json", "-o", d + "/sum.tsv"],
 ]
 rcs = [main(["--device", "cpu", *argv]) for argv in runs]
+os.environ["ORION_KMER_SHARDS"] = "4"  # the same count over four CPU shards
+rcs.append(main(["--device", "cpu", "count", "-k", "5", "-i", fa, "-o", d + "/sharded.tsv"]))
+del os.environ["ORION_KMER_SHARDS"]
 ready = threading.Event()
 t = threading.Thread(target=server.serve, args=(d + "/s.sock", "cpu"), kwargs={"on_ready": ready.set})
 t.start()
@@ -58,7 +61,7 @@ banned = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "orion_kmer_tpu" or m.startswith("orion_kmer_tpu.")
 )
-print(rcs, banned)
+print(rcs, banned, "orion_kmer_tpu_torch.parallel.streaming" in sys.modules)
 """
 
 OUTPUTS = ("db.db", "cmp.json", "ids.txt", "cl.json", "cl.tsv", "s.sig", "sc.json", "p.json", "sum.tsv")
@@ -75,7 +78,7 @@ def test_every_subcommand_runs_without_jax_or_the_jax_package(tmp_path):
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []"
+    assert proc.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] [] True"
     vals = np.concatenate(
         [codec.extract_kmers_np(codec.seq_to_codes(r.seq), 5) for r in parse_fastx_bytes(SAMPLE1_FASTA.encode())]
     )
@@ -83,6 +86,7 @@ def test_every_subcommand_runs_without_jax_or_the_jax_package(tmp_path):
     expected = "".join(f"{codec.u64_to_seq(int(v), 5).decode()}\t{c}\n" for v, c in zip(uniq, counts))
     assert (tmp_path / "o.tsv").read_text() == expected
     assert (tmp_path / "served.tsv").read_text() == expected
+    assert (tmp_path / "sharded.tsv").read_text() == expected
     for name in OUTPUTS:
         assert (tmp_path / name).exists(), name
     assert not (tmp_path / "s.sock").exists()
@@ -97,7 +101,8 @@ def test_no_jax_or_jax_package_import_in_sources():
     new_modules = {"server.py", "ops/hash.py", "ops/sketch.py", "commands/sketch.py", "commands/profile.py",
                    "commands/cohort.py", *(f"cohort/{m}.py" for m in
                                            ("__init__", "client", "entrez", "find_hybrid", "manifest",
-                                            "platforms", "summarize"))}
+                                            "platforms", "summarize")),
+                   *(f"parallel/{m}.py" for m in ("__init__", "mesh", "sharded", "streaming", "distributed"))}
     assert new_modules <= names
     assert len(sources) > 30
 

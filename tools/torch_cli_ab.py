@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Wall time of the port's CLI in two checkouts, in alternating pairs on one card.
+
+    python3 tools/torch_cli_ab.py --parent DIR [--change DIR] [--pairs N] [--gbp G]
+
+Makes the E. coli-like reads of ``chip_smoke.py`` phase 5 once, then runs
+`count -k 31 -m 2 --histogram` and `sketch -k 31 --scaled 1000` of them as
+`python -m orion_kmer_tpu_torch` subprocesses from the parent's checkout
+and from the change's (default: this one), with ORION_KMER_SHARDS=0: one
+untimed run each (it builds that checkout's kernels), then N pairs,
+alternating which side runs first.  The wall is the subprocess's, process
+start included: what a user of the CLI waits for.  Both sides must write
+the same bytes.  To compare a commit with its parent, unpack the parent
+with ``git archive`` into a directory that .gitignore lists.  Prints one
+JSON line per command: every wall, the medians, the distance between the
+parent's quartiles, and the pairs each side won.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def run(root: Path, argv) -> float:
+    env = dict(os.environ, ORION_KMER_SHARDS="0")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "orion_kmer_tpu_torch", *map(str, argv)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}: {argv} failed: {proc.stderr[-2000:]}")
+    return wall
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, help="checkout of the parent commit")
+    ap.add_argument("--change", default=str(HERE), help="checkout of the change")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gbp", type=float, default=0.5, help="Gbp of reads")
+    args = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_cli_ab: no CUDA device")
+    roots = {"parent": Path(args.parent).resolve(), "change": Path(args.change).resolve()}
+    card = chip_smoke.gpu_name_and_limit()
+    work = HERE / "build" / "cli_ab"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        fq = work / "reads.fastq"
+        chip_smoke.write_reads_fastq(np, fq, np.random.default_rng(args.seed), args.gbp)
+        commands = {
+            "count": lambda side: ["count", "-k", 31, "-m", 2, "--histogram", work / f"{side}.hist",
+                                   "-i", fq, "-o", work / f"{side}.tsv"],
+            "sketch": lambda side: ["sketch", "-k", 31, "--scaled", 1000, "-i", fq, "-o", work / f"{side}.sig"],
+        }
+        outputs = {"count": (".tsv", ".hist"), "sketch": (".sig",)}
+        for name, argv in commands.items():
+            walls = {"parent": [], "change": []}
+            for side, root in roots.items():
+                run(root, argv(side))  # untimed: builds this checkout's kernels
+            for suffix in outputs[name]:
+                chip_smoke.check((work / f"parent{suffix}").read_bytes() == (work / f"change{suffix}").read_bytes(),
+                                 f"{name}: both checkouts write the same {suffix}")
+            for pair in range(args.pairs):
+                for side in (("parent", "change") if pair % 2 == 0 else ("change", "parent")):
+                    walls[side].append(run(roots[side], argv(side)))
+            q = statistics.quantiles(walls["parent"], n=4)
+            print(json.dumps({
+                "command": name, "card": card, "pairs": args.pairs,
+                "parent_s": walls["parent"], "change_s": walls["change"],
+                "parent_median_s": statistics.median(walls["parent"]),
+                "change_median_s": statistics.median(walls["change"]),
+                "parent_quartile_distance_s": q[2] - q[0],
+                "pairs_won_by_change": sum(c < p for p, c in zip(walls["parent"], walls["change"])),
+                "pairs_won_by_parent": sum(p < c for p, c in zip(walls["parent"], walls["change"])),
+            }), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
