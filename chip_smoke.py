@@ -60,9 +60,13 @@ Phases, in order; any failure raises and exits non-zero:
      FASTA at k = 21 against the oracle, and `sharded_count` and
      `ShardedCountTable` on the T*40 k = 32 edge; the shards take one card
      each where the host has them and share the card otherwise;
- 11. two processes: `run_two_process_smoke` on the card (two ranks over
-     gloo sharing it, or nccl with a card each), and a process group of
-     one rank over nccl, each against the oracle.
+ 11. processes: `run_two_process_smoke` on the card(s), two ranks of one
+     shard and two ranks of two shards (k = 9, 21, 32 and the T*40 edge;
+     gloo with every shard on the one card, or nccl with the ranks'
+     shares of four cards), a process group of one rank over nccl that
+     takes every card, and two ranks of two shards counting the 9 Mbp
+     FASTA at k = 21 (wall, stats and launches printed), each against the
+     oracle.
 The last line is the result JSON; the kernel JSON and the card's
 `nvidia-smi` name and power limit are printed before it.  Needs no
 network and no JAX.
@@ -1113,7 +1117,7 @@ def drive_sharded(torch, n_shards: int, argv):
     handler = logging.Handler()
     handler.emit = lambda record: seen.append(record.getMessage())
     engine_log = logging.getLogger("orion_kmer_tpu_torch.engine")
-    level, propagate, before = engine_log.level, engine_log.propagate, os.environ["ORION_KMER_SHARDS"]
+    level, propagate, before = engine_log.level, engine_log.propagate, os.environ.get("ORION_KMER_SHARDS")
     engine_log.addHandler(handler)
     engine_log.setLevel(logging.INFO)
     engine_log.propagate = False
@@ -1125,7 +1129,10 @@ def drive_sharded(torch, n_shards: int, argv):
     try:
         wall, launches, _ = drive(torch, cards[0], argv)
     finally:
-        os.environ["ORION_KMER_SHARDS"] = before
+        if before is None:
+            del os.environ["ORION_KMER_SHARDS"]
+        else:
+            os.environ["ORION_KMER_SHARDS"] = before
         engine_log.removeHandler(handler)
         engine_log.setLevel(level)
         engine_log.propagate = propagate
@@ -1220,20 +1227,74 @@ dist.destroy_process_group()
 print(json.dumps({"unique": int(vals.shape[0]), "K1": extract.launches, "K3": compact.launches, "stats": stats}))
 """
 
+# two ranks of two shards each count the 9 Mbp FASTA at k = 21: a warm-up
+# count of the T*40 edge, then the timed one with the launch counters zeroed
+# just before it; rank 0 saves the result for the oracle
+BIG_RANKS = """
+import json, sys, time
+import numpy as np
+import torch, torch.distributed as dist
+from orion_kmer_tpu_torch import codec
+from orion_kmer_tpu_torch.ingest.fastx import parse_fastx_file
+from orion_kmer_tpu_torch.ops import compact, extract
+from orion_kmer_tpu_torch.parallel.distributed import maybe_initialize_distributed, multihost_sharded_count, rank_devices
+from orion_kmer_tpu_torch.parallel.mesh import make_mesh
 
-def phase_two_processes(torch, work: Path):
-    """Phase 11: two ranks on the card(s) through the environment
-    contract, then one rank over nccl, each against the oracle."""
+fasta, out = sys.argv[1:]
+assert maybe_initialize_distributed("cuda")
+mesh = make_mesh(2, rank_devices("cuda"))
+sep = np.full(1, 255, np.uint8)
+codes = np.concatenate([x for r in parse_fastx_file(fasta) for x in (codec.seq_to_codes(r.seq), sep)])
+edge = codec.seq_to_codes(b"T" * 40)
+multihost_sharded_count(edge, edge > 3, 21, "cuda", devices=mesh)
+for card in set(mesh):
+    torch.cuda.synchronize(card)
+extract.launches = compact.launches = 0
+dist.barrier()
+t0 = time.perf_counter()
+stats = {}
+vals, counts = multihost_sharded_count(codes, codes > 3, 21, "cuda", stats=stats, devices=mesh)
+wall = time.perf_counter() - t0
+if dist.get_rank() == 0:
+    np.save(out + ".vals.npy", vals)
+    np.save(out + ".counts.npy", counts)
+print(json.dumps({"rank": dist.get_rank(), "devices": [str(d) for d in mesh], "wall_s": round(wall, 3),
+                  "K1": extract.launches, "K3": compact.launches, "stats": stats}))
+dist.destroy_process_group()
+"""
+
+
+def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
+    """Phase 11: ranks on the card(s) through the environment contract,
+    each count against the numpy oracle: two ranks of one shard, two ranks
+    of two shards (nccl with two cards a rank on a four-card host, gloo
+    with all four shards on the card otherwise), one rank over nccl, and
+    two ranks of two shards on the 9 Mbp FASTA at k = 21.  Returns the
+    launches of the ranks, summed."""
     import socket
 
-    from orion_kmer_tpu_torch.parallel.distributed import choose_backend, run_two_process_smoke
+    from orion_kmer_tpu_torch.parallel.distributed import (
+        choose_backend, local_devices, run_ranks, run_two_process_smoke,
+    )
 
-    t0 = time.monotonic()
-    res = run_two_process_smoke(work / "two_processes", timeout=300.0, device="cuda")
-    st = res["a2a_stats"]
-    check(st["backend"] == choose_backend("cuda", 2), "the two ranks took the backend the card count calls for")
-    log(f"two processes on {torch.cuda.device_count()} card(s) over {st['backend']}: both ranks == oracle, "
-        f"{res['unique']} unique 9-mers, {time.monotonic() - t0:.1f} s with process start; {st}")
+    n_cards = torch.cuda.device_count()
+    runs = {}
+    for shards in (1, 2):
+        t0 = time.monotonic()
+        res = run_two_process_smoke(work / f"two_processes_{shards}", timeout=300.0, device="cuda", shards=shards)
+        for c in res["counts"]:
+            st = c["stats"]
+            check(st["backend"] == choose_backend("cuda", 2) and st["n_shards"] == 2 * shards and st["n_processes"] == 2,
+                  f"two ranks of {shards} shard(s), {c['count']}: backend, shards and processes")
+        share = [[f"cuda:{i}" for i in local_devices(["host"] * 2, r, n_cards)] for r in range(2)]
+        check(res["devices"] == [[d[s % len(d)] for s in range(shards)] for d in share],
+              "each rank's shards sit on its share of the cards")
+        log(f"two ranks x {shards} shard(s) on {n_cards} card(s) over {res['a2a_stats']['backend']}, shards on "
+            f"{res['devices']}: k = 9, 21, 32 and T*40 == oracle on both ranks, {time.monotonic() - t0:.1f} s with "
+            f"process start; unique {[c['unique'] for c in res['counts']]}; k = 9 stats {res['a2a_stats']}; "
+            f"launches {res['launches']}")
+        runs[f"two ranks x {shards} shard(s)"] = {
+            "K1": sum(r["K1"] for r in res["launches"]), "K2": 0, "K3": sum(r["K3"] for r in res["launches"])}
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1243,9 +1304,29 @@ def phase_two_processes(torch, work: Path):
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"one rank over nccl: {proc.stderr[-3000:]}")
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(got["stats"]["backend"] == "nccl" and got["K1"] == 1 and got["K3"] > 0, "the nccl rank launched K1 and K3")
-    log(f"one rank over nccl, 2^20 positions at k = 31: == oracle, {got['unique']} unique, "
-        f"{time.monotonic() - t0:.1f} s with process start; {got}")
+    st = got["stats"]
+    check(st["backend"] == "nccl" and st["n_shards"] == n_cards and got["K1"] == n_cards and got["K3"] > 0,
+          "the lone nccl rank took every card and launched K1 and K3 on each")
+    log(f"one rank over nccl, one shard on each of {n_cards} card(s), 2^20 positions at k = 31: == oracle, "
+        f"{got['unique']} unique, {time.monotonic() - t0:.1f} s with process start; {got}")
+    runs["one nccl rank"] = {"K1": got["K1"], "K2": 0, "K3": got["K3"]}
+
+    t0 = time.monotonic()
+    out = work / "big_ranks"
+    outs = run_ranks(BIG_RANKS, [[big_fasta, out]] * 2, work / "big_ranks_work", timeout=300.0)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    vals, counts = np.load(f"{out}.vals.npy"), np.load(f"{out}.counts.npy")
+    check(render_tsv(np, vals, counts, 21) == oracle_tsv21, "two ranks x 2 shards, 9 Mbp at k = 21 == oracle")
+    for r in ranks:
+        st = r["stats"]
+        check(st["n_shards"] == 4 and st["n_processes"] == 2 and r["K1"] == 2 and r["K3"] == 2 * 4 + 2,
+              "each rank extracted its two blocks, routed each four ways and encoded its two owners")
+        log(f"two ranks x 2 shards, count of the 9 Mbp FASTA at k = 21, rank {r['rank']} on {r['devices']}: "
+            f"== oracle, wall {r['wall_s']:.3f} s (warm, first call excluded), launches K1 {r['K1']} K3 {r['K3']}, "
+            f"stats {st}")
+    log(f"two ranks x 2 shards on the 9 Mbp FASTA: {time.monotonic() - t0:.1f} s with process start")
+    runs["two ranks x 2 shards, 9 Mbp"] = {"K1": sum(r["K1"] for r in ranks), "K2": 0, "K3": sum(r["K3"] for r in ranks)}
+    return runs
 
 
 def main() -> int:
@@ -1294,10 +1375,6 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    # phases 4 to 9 hold the single table whatever the card count (on a host
-    # with several cards ORION_KMER_SHARDS=auto would shard them); phase 10
-    # sets the shard count itself
-    os.environ["ORION_KMER_SHARDS"] = "0"
     try:
         if args.sharded_only:
             records = write_multirecord_fasta(np, work / "big.fasta", rng, 9_000_000)
@@ -1324,7 +1401,7 @@ def main() -> int:
             passed("phase 9 serve")
         runs.update(phase_sharded(np, torch, codec, work, fq, count_tsv, n_windows, work / "big.fasta", oracle_tsv21))
         passed("phase 10 sharded count")
-        phase_two_processes(torch, work)
+        runs.update(phase_two_processes(np, torch, work, work / "big.fasta", oracle_tsv21))
         passed("phase 11 two processes")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1333,8 +1410,8 @@ def main() -> int:
         log(f"{card}; ran phases 1-3, 5, 10 and 11 (--sharded-only): no result line")
         return 0
 
-    # launches: K1-K3 summed over the in-process runs of phases 5 to 10; K4,
-    # which no command reaches, from its entry's run
+    # launches: K1-K3 summed over the in-process runs of phases 5 to 10 and
+    # the ranks of phase 11; K4, which no command reaches, from its entry's run
     runs["count"] = launches
     for name, r in runs.items():
         log(f"launches of {name}: {r}")

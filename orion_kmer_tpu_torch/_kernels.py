@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
 started together), and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes``.  The build
 happens once, at first use, into
-``build/okt_torch_kernels/<hash of the sources>/`` at the repository root,
+``build/okt_torch_kernels/<hash of the sources>/`` at the repository root
+(``$ORION_KMER_BUILD_DIR/okt_torch_kernels/...`` where that is set),
 from the sources in the repository and nothing else.  Importing this
 module builds nothing: the CPU path never calls ``lib()``.
 
@@ -32,7 +33,9 @@ logger = logging.getLogger("orion_kmer_tpu_torch.kernels")
 
 _PKG = Path(__file__).resolve().parent
 _SRC_DIR = _PKG / "csrc"
-_BUILD_ROOT = _PKG.parent / "build" / "okt_torch_kernels"
+# where the library is built: ORION_KMER_BUILD_DIR, read at each build,
+# else build/ at the repository root
+_DEFAULT_BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -80,7 +83,8 @@ def _build() -> Path:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = _BUILD_ROOT / h.hexdigest()[:16]
+    build_dir = Path(os.environ.get("ORION_KMER_BUILD_DIR", _DEFAULT_BUILD_DIR))
+    out_dir = build_dir / "okt_torch_kernels" / h.hexdigest()[:16]
     so_path = out_dir / "libokt_torch_kernels.so"
     if so_path.exists():
         return so_path

@@ -1,5 +1,5 @@
-"""Batched host -> device pipelines on one device: counting and the set
-joins.
+"""Batched host -> device pipelines: counting (on one device, or over
+several shards through ``parallel/``) and the set joins.
 
 The torch counterpart of ``orion_kmer_tpu/engine.py``'s
 ``DeviceCountTable``, ``count_file``, ``unique_from_file``,
@@ -197,25 +197,25 @@ def _make_count_table(k: int, device):
     """The count table for ``device``: ``DeviceCountTable`` on one device,
     ``parallel.ShardedCountTable`` over several shards.
 
-    ``ORION_KMER_SHARDS``: ``auto`` (the default) = one shard per visible
-    card when ``device`` is CUDA and more than one card is visible, else
-    the single table; ``0`` = the single table; ``N`` > 1 = N logical
-    shards, round-robin over the visible cards (on a CPU device, N CPU
-    shards: what the tests run)."""
+    ``ORION_KMER_SHARDS``: ``N`` > 1 = N logical shards, round-robin over
+    the visible cards when ``device`` is ``cuda`` (on a CPU device, N CPU
+    shards: what the tests run); ``auto`` (the default), ``0`` or ``1`` =
+    the single table on ``device``.  ``auto`` is the single table because
+    one consumer thread cuts, packs and launches for every shard: on four
+    NVIDIA H100 80GB HBM3 cards at 700 W, `count -k 31 -m 2 --histogram`
+    of 0.5 Gbp took 8.109 s over four shards, one a card, against 6.287 s
+    for the single table (``chip_smoke.py`` phase 10).  ``auto`` turns
+    back to one shard per card once four cards win that measurement."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
-        devices = [device]
     mode = os.environ.get("ORION_KMER_SHARDS", "auto")
-    n_shards = 0
-    if mode == "auto":
-        n_shards = len(devices)
-    elif mode.isdigit():
-        n_shards = int(mode)
+    n_shards = int(mode) if mode.isdigit() else 0
     if n_shards > 1:
         from .parallel import ShardedCountTable, make_mesh
 
+        if device.type == "cuda" and device.index is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [device]
         return ShardedCountTable(k, make_mesh(n_shards, devices))
     return DeviceCountTable(k, device)
 

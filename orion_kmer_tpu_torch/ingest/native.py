@@ -2,8 +2,9 @@
 
 The port's own copy of ``orion_kmer_tpu/ingest/native.py``.  It compiles
 ``fastx.cpp`` beside this module on first use (g++ -O3) into
-``build/okt_torch_native/<hash of the source>/`` at the repository root,
-and exposes ``parse_fastx_packed``: one C pass over a decompressed
+``build/okt_torch_native/<hash of the source>/`` at the repository root
+(``$ORION_KMER_BUILD_DIR/okt_torch_native/...`` where that is set), and
+exposes ``parse_fastx_packed``: one C pass over a decompressed
 buffer producing the full 2-bit code stream with inter-record
 separators, per-record offsets, and ids -- the zero-Python-per-record
 ingest path.
@@ -29,7 +30,9 @@ from ..errors import ContextError
 logger = logging.getLogger("orion_kmer_tpu_torch.ingest.native")
 
 _SRC = Path(__file__).resolve().parent / "fastx.cpp"
-_BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "okt_torch_native"
+# where the library is built: ORION_KMER_BUILD_DIR, read at each build,
+# else build/ at the repository root
+_DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 
 _lock = threading.Lock()
 _lib = None
@@ -53,7 +56,8 @@ _ERROR_NAMES = {
 
 def _compile() -> Path:
     src = _SRC.read_bytes()
-    out_dir = _BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
+    build_dir = Path(os.environ.get("ORION_KMER_BUILD_DIR", _DEFAULT_BUILD_DIR))
+    out_dir = build_dir / "okt_torch_native" / hashlib.sha256(src).hexdigest()[:16]
     so_path = out_dir / "libokt_fastx.so"
     if so_path.exists():
         return so_path

@@ -88,10 +88,12 @@ def route_to_owners(keys: torch.Tensor, n_shards: int) -> list[torch.Tensor]:
 
 
 def fetch_counts(counts: list[torch.Tensor], mesh: list[torch.device]) -> np.ndarray:
-    """The S x S table of routed counts (row = source shard) from the
-    per-source count vectors of ``route_keys``: one transfer per distinct
-    device, made after every shard's work has been enqueued."""
-    table = np.empty((len(mesh), len(mesh)), dtype=np.int64)
+    """The table of routed counts (row = source shard of ``mesh``, column
+    = destination shard) from the per-source count vectors of
+    ``route_keys``: one transfer per distinct device, made after every
+    shard's work has been enqueued.  S x S for a mesh that holds every
+    shard; a process's rows of the global table for a part of it."""
+    table = np.empty((len(mesh), counts[0].shape[0]), dtype=np.int64)
     by_device: dict[torch.device, list[int]] = {}
     for s, dev in enumerate(mesh):
         by_device.setdefault(dev, []).append(s)

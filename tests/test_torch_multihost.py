@@ -107,3 +107,64 @@ def test_one_rank_group_matches_oracle(one_rank_group, k):
     assert stats["n_shards"] == 1 and stats["ici_bytes_per_position"] == 0.0
     assert stats["a2a_bytes_per_position"] == round(8 * int(exp_counts.sum()) / 3000, 3)
     assert distributed.maybe_initialize_distributed("cpu") is False  # a group of one
+
+
+@pytest.mark.parametrize("shards,per_rank", [(2, [2, 2]), ((2, 1), [2, 1])])
+def test_two_processes_of_several_shards(tmp_path, shards, per_rank):
+    """Two ranks of several CPU shards each (2 + 2, as the JAX package's
+    smoke makes 2 processes x 2 devices, and an uneven 2 + 1): every count
+    of the worker (k = 9, 21, 32 and the T*40 edge) equals the oracle on
+    both ranks, over S = the sum of the ranks' shards."""
+    res = distributed.run_two_process_smoke(tmp_path, timeout=180.0, device="cpu", shards=shards)
+    assert res["shards"] == per_rank
+    assert res["devices"] == [["cpu"] * n for n in per_rank]
+    assert [c["count"] for c in res["counts"]] == ["k=9", "k=21", "k=32", "T*40, k=32"]
+    for c in res["counts"]:
+        st = c["stats"]
+        assert st["n_shards"] == sum(per_rank) and st["n_processes"] == 2 and st["backend"] == "gloo"
+    assert res["counts"][-1]["unique"] == 1  # T^32 and A^32 are one canonical k-mer
+    st = res["a2a_stats"]
+    assert 0 < st["ici_bytes_per_position"] < st["a2a_bytes_per_position"] <= 8
+
+
+@pytest.mark.parametrize("ranks,cards,expected", [
+    (1, 1, [[0]]),
+    (2, 1, [[0], [0]]),
+    (4, 1, [[0], [0], [0], [0]]),
+    (1, 4, [[0, 1, 2, 3]]),
+    (2, 4, [[0, 2], [1, 3]]),
+    (4, 4, [[0], [1], [2], [3]]),
+])
+def test_local_devices(ranks, cards, expected):
+    """A lone rank takes every card, two ranks on four cards take two
+    each, one rank per card takes its own, and ranks share a lone card."""
+    hosts = ["node-a"] * ranks
+    assert [distributed.local_devices(hosts, r, cards) for r in range(ranks)] == expected
+
+
+def test_local_devices_per_host_and_without_a_card():
+    """Local ranks count per host name; no card raises."""
+    hosts = ["node-a", "node-b", "node-a", "node-b"]
+    assert [distributed.local_devices(hosts, r, 4) for r in range(4)] == [[0, 2], [0, 2], [1, 3], [1, 3]]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.local_devices(hosts, 0, 0)
+
+
+@pytest.mark.parametrize("ranks_per_host,cards,backend", [(2, 4, "nccl"), (4, 4, "nccl"), (2, 1, "gloo"), (8, 4, "gloo")])
+def test_backend_choice_by_ranks_per_host(ranks_per_host, cards, backend):
+    assert distributed.choose_backend("cuda", ranks_per_host, cards) == backend
+
+
+@pytest.mark.parametrize("k", [9, 21, 32])
+def test_one_rank_of_two_shards_matches_oracle(one_rank_group, k):
+    """One rank with two CPU shards: the exchange is all peer copies."""
+    rng = np.random.default_rng(100 + k)
+    codes = rng.integers(0, 4, size=3000, dtype=np.uint8)
+    codes[rng.random(3000) < 0.02] = 255
+    codes[-40:] = 3
+    stats = {}
+    vals, counts = distributed.multihost_sharded_count(codes, codes > 3, k, "cpu", stats=stats, devices=["cpu", "cpu"])
+    exp_vals, exp_counts = np.unique(codec.extract_kmers_np(codes, k), return_counts=True)
+    np.testing.assert_array_equal(vals, exp_vals)
+    np.testing.assert_array_equal(counts, exp_counts)
+    assert stats["n_shards"] == 2 and stats["n_processes"] == 1 and stats["ici_bytes_per_position"] == 0.0

@@ -224,16 +224,17 @@ def test_make_count_table_modes_on_the_cpu(monkeypatch, mode, kind, n_shards):
 
 @pytest.mark.parametrize("mode,cards,mesh", [
     ("auto", 1, None),
-    ("auto", 4, [0, 1, 2, 3]),
+    ("auto", 4, None),
+    ("4", 4, [0, 1, 2, 3]),
     ("0", 4, None),
     ("2", 4, [0, 1]),
     ("6", 4, [0, 1, 2, 3, 0, 1]),
     ("4", 1, [0, 0, 0, 0]),
 ])
 def test_make_count_table_modes_on_cards(monkeypatch, mode, cards, mesh):
-    """auto = one shard per visible card when there are several; N =
-    N logical shards round-robin over the cards.  Only the tables are
-    built: nothing touches a card."""
+    """auto = the single table on the requested card, however many are
+    visible; N = N logical shards round-robin over the cards.  Only the
+    tables are built: nothing touches a card."""
     monkeypatch.setenv("ORION_KMER_SHARDS", mode)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     table = engine._make_count_table(31, "cuda")
