@@ -9,18 +9,25 @@
 Phases, in order; any failure raises and exits non-zero:
   1. device: the card's name and power limit, native ingest status;
   2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc, print
-     ptxas's registers and spills per kernel, fail if K1 or K4 spills;
+     ptxas's registers and spills per kernel, fail if K1, K3 or K4 spills;
   3. kernels: K1 (extract, every k in 1..32 at two batch lengths), K2
-     (merge), K3 (compact; also one plane at density 1/1000, the sketch's
-     survivors) and K4 (block sort, n from 1 to 2^14 across every cluster
-     size) against their plain torch versions on the card, at the main
-     path's shapes, exactly, with device times from CUDA events around
-     back-to-back calls (median_ms), beside the library call that computes
-     the same function and the card's bound; the sketch's hash and keep
-     chain (torch ops) per 2^24 batch; the sharded count's route step
-     (owner chain and 4 K3 passes over a shard's 2^22-position block);
-     and, where more than one card is visible, every kernel on the last
-     card while the first stays current;
+     (merge; also at the sharded count's shapes), K3 (compact: every mode
+     -- one and two planes, positions, the S-way route -- at lengths
+     around its tile and up to 2^25, aligned and not, densities 0 to 1,
+     S = 1..5 and 8, keys with the sentinel and A^32, and at the main
+     path's largest sizes -- positions over the flush's 2^28-key run, two
+     planes at the fold's 49 M elements -- each case 20 times and
+     byte-equal to its first run; the flush's whole rle_sorted against
+     torch.unique_consecutive; then timed at every shape the main path
+     gives it) and K4 (block sort, n from 1 to 2^14 across every
+     cluster size) against their plain torch versions on the card,
+     exactly, with device times from CUDA events around back-to-back calls
+     (median_ms), beside the library call that computes the same function
+     and the card's bound; the sketch's hash and keep chain (torch ops)
+     per 2^24 batch; the sharded count's route step (one K3 launch over a
+     shard's 2^22-position block); and, where more than one card is
+     visible, every kernel on the last card while the first stays
+     current;
   4. exact run: `count` at k = 15, 21, 31, 32 (once with small batches
      and a lowered device-table bound, so the forest deepens and the table
      spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
@@ -58,8 +65,10 @@ Phases, in order; any failure raises and exits non-zero:
  10. sharded count: the phase-5 command with ORION_KMER_SHARDS=4 (TSV and
      histogram byte-equal to phase 5's), ORION_KMER_SHARDS=3 on the 9 Mbp
      FASTA at k = 21 against the oracle, and `sharded_count` and
-     `ShardedCountTable` on the T*40 k = 32 edge; the shards take one card
-     each where the host has them and share the card otherwise;
+     `ShardedCountTable` on the T*40 k = 32 edge; both counts route each
+     block in one K3 launch (as many route launches as K1 launches); the
+     shards take one card each where the host has them and share the
+     card otherwise;
  11. processes: `run_two_process_smoke` on the card(s), two ranks of one
      shard and two ranks of two shards (k = 9, 21, 32 and the T*40 edge;
      gloo with every shard on the one card, or nccl with the ranks'
@@ -349,8 +358,8 @@ def write_query_reads(np, path: Path, rng, records, n: int = 20_000):
 # ---------------------------------------------------------------- phases
 
 
-# kernels held to zero spill bytes (the redesigned K1 and K4)
-NO_SPILL = ("extract_kernel", "cluster_sort_kernel")
+# kernels held to zero spill bytes (the redesigned K1, K3 and K4)
+NO_SPILL = ("extract_kernel", "compact_kernel", "cluster_sort_kernel")
 
 
 def check_ptxas(report) -> None:
@@ -368,6 +377,169 @@ def check_ptxas(report) -> None:
             check(spill == 0, f"{name} spills no registers")
     for n in NO_SPILL:
         check(any(n in name for name in groups), f"ptxas reported {n}")
+
+
+K3_TILE = 2048  # elements a block of csrc/compact.cu ranks
+K3_SIZES = (0, 1, K3_TILE - 1, K3_TILE + 1, 1 << 22, 1 << 24, 1 << 25)
+K3_DENSITIES = (0.0, 0.03, 0.5, 0.97, 1.0)
+K3_DESTS = (1, 2, 3, 4, 5, 8)  # 5: one past a group of four destinations
+K3_REPEATS = 20
+
+
+def k3_keys(torch, dev, n: int, gen):
+    """n random int64 keys, 5 % of them SENTINEL_KEY and 1 % the k = 32
+    key of T*40 (A^32, INT64_MIN)."""
+    from orion_kmer_tpu_torch.keys import SENTINEL_KEY
+
+    keys = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), device=dev, generator=gen)
+    u = torch.rand(n, device=dev, generator=gen)
+    keys[u < 0.05] = SENTINEL_KEY
+    keys[u > 0.99] = -(1 << 63)
+    return keys
+
+
+def k3_outputs(outs, counts):
+    """The kept prefix of every output of a K3 mode, and its counts."""
+    cs = counts.reshape(-1).tolist()
+    if len(cs) == 1:
+        cs = cs * len(outs)
+    return [o[:c] for o, c in zip(outs, cs)] + [counts.reshape(-1)]
+
+
+def k3_run(torch, what: str, kernel, plain, *args):
+    """kernel(*args) against plain(*args), then K3_REPEATS - 1 more runs,
+    each equal to the first byte for byte (a race in the status words
+    would show here)."""
+    first = k3_outputs(*kernel(*args))
+    want = k3_outputs(*plain(*args))
+    check(len(first) == len(want) and all(torch.equal(a, b) for a, b in zip(first, want)), f"K3 {what} == plain")
+    for _ in range(K3_REPEATS - 1):
+        again = k3_outputs(*kernel(*args))
+        check(all(torch.equal(a, b) for a, b in zip(first, again)), f"K3 {what}: every run equals the first")
+
+
+def k3_exhaustive(np, torch, codec, dev, gen) -> int:
+    """Every K3 mode against its plain version: n around the tile and at
+    the main path's sizes, each also as a view that is not 16-byte
+    aligned; every density for the masks, the positions mode with and
+    without a limit, the route for every S of K3_DESTS, and the k = 32
+    T*40 batch through K1.  Returns the number of cases."""
+    from orion_kmer_tpu_torch.host import pack_for_transfer
+    from orion_kmer_tpu_torch.ops import compact, count, extract
+
+    cases = 0
+    for n in K3_SIZES:
+        for offset in (0, 1):
+            keys = k3_keys(torch, dev, n + offset, gen)[offset:]
+            x1 = k3_keys(torch, dev, n + offset, gen)[offset:]
+            at = f"n = {n}{' (misaligned view)' if offset else ''}"
+            for n_dest in K3_DESTS:
+                k3_run(torch, f"route {at}, S = {n_dest}", compact.partition, compact.partition_plain, keys, n_dest)
+                cases += 1
+            limit = torch.tensor(n // 2 + 1, device=dev)
+            for density in K3_DENSITIES:
+                keep = (torch.rand(n + offset, device=dev, generator=gen) < density)[offset:]
+                what = f"{at}, density {density}"
+                k3_run(torch, f"one plane {what}", compact.compact, compact.compact_plain, [keys], keep)
+                k3_run(torch, f"two planes {what}", compact.compact, compact.compact_plain, [keys, x1], keep)
+                k3_run(torch, f"positions {what}", compact.compact_positions, compact.compact_positions_plain, keys, keep)
+                k3_run(torch, f"positions {what}, limit {n // 2 + 1}", compact.compact_positions,
+                       compact.compact_positions_plain, keys, keep, limit)
+                cases += 4
+            del keys, x1, keep
+    lanes, inv = pack_for_transfer(codec.seq_to_codes(b"T" * 40), 64)
+    tkeys, tn = extract.extract_keys(
+        torch.from_numpy(lanes.view(np.int32)).to(dev), torch.from_numpy(inv.view(np.int32)).to(dev), 32, 40)
+    for n_dest in K3_DESTS:
+        k3_run(torch, f"route of T*40 at k = 32, S = {n_dest}", compact.partition, compact.partition_plain, tkeys, n_dest)
+        cases += 1
+    ukeys, ucnt = count.rle_sorted(torch.sort(tkeys).values, tn)
+    check(ukeys.tolist() == [-(1 << 63)] and ucnt.tolist() == [9], "rle_sorted of T*40 at k = 32: one key, 9 times")
+    torch.cuda.synchronize()
+    log(f"K3 every mode == plain and identical over {K3_REPEATS} runs: {cases} cases, n in {K3_SIZES} "
+        f"(aligned and not), densities {K3_DENSITIES}, S in {K3_DESTS}, keys with the sentinel and A^32")
+    return cases
+
+
+K3_FLUSH = 1 << 28  # the flush's run: FLUSH_WINDOWS sorted keys
+K3_FOLD = 49_000_000  # combine_sorted_unique's fold: a ~40 M-key table and a ~9 M-key flush
+K3_FLUSH_TAIL = 4096  # sentinel entries past n_valid at the end of the flush's run
+
+
+def k3_flush_run(torch, dev, gen):
+    """A sorted K3_FLUSH-key run as the flush hands it to rle_sorted: about
+    one key in ten a head, the last K3_FLUSH_TAIL entries SENTINEL_KEY past
+    n_valid.  Returns (run, heads, n_valid)."""
+    from orion_kmer_tpu_torch.keys import SENTINEL_KEY
+
+    n = K3_FLUSH
+    run = torch.sort(torch.randint(0, n // 10, (n,), device=dev, generator=gen)).values
+    run[-K3_FLUSH_TAIL:] = SENTINEL_KEY
+    heads = torch.ones(n, dtype=torch.bool, device=dev)
+    torch.ne(run[1:], run[:-1], out=heads[1:])
+    return run, heads, torch.tensor(n - K3_FLUSH_TAIL, device=dev)
+
+
+def k3_main_path_sizes(torch, dev, gen) -> int:
+    """K3 at the largest sizes the main path gives it, each case against
+    its plain version and K3_REPEATS times byte for byte: positions with a
+    limit over the flush's 2^28-key run (its heads, and a density of 0.5
+    that stages every tile), two planes at the fold's 49 M elements, and
+    the flush's whole rle_sorted against torch.unique_consecutive.
+    Returns the number of cases."""
+    from orion_kmer_tpu_torch.ops import compact, count
+
+    run, heads, n_valid = k3_flush_run(torch, dev, gen)
+    k3_run(torch, "positions over the flush's 2^28-key run, its heads, limit n_valid", compact.compact_positions,
+           compact.compact_positions_plain, run, heads, n_valid)
+    half = torch.rand(K3_FLUSH, device=dev, generator=gen) < 0.5
+    k3_run(torch, "positions, 2^28, density 0.5, limit 2^28 - 1000", compact.compact_positions,
+           compact.compact_positions_plain, run, half, torch.tensor(K3_FLUSH - 1000, device=dev))
+    del half
+    ukeys, ucnt = count.rle_sorted(run, n_valid)
+    wkeys, wcnt = torch.unique_consecutive(run[: K3_FLUSH - K3_FLUSH_TAIL], return_counts=True)
+    check(torch.equal(ukeys, wkeys) and torch.equal(ucnt, wcnt),
+          "rle_sorted of the flush's 2^28-key run == torch.unique_consecutive")
+    del run, heads, ukeys, ucnt, wkeys, wcnt
+    x0, x1 = k3_keys(torch, dev, K3_FOLD, gen), k3_keys(torch, dev, K3_FOLD, gen)
+    for density in K3_DENSITIES[1:-1]:
+        keep = torch.rand(K3_FOLD, device=dev, generator=gen) < density
+        k3_run(torch, f"two planes, {K3_FOLD} (the fold), density {density}", compact.compact, compact.compact_plain,
+               [x0, x1], keep)
+    del x0, x1, keep
+    torch.cuda.synchronize()
+    cases = 2 + len(K3_DENSITIES[1:-1])
+    log(f"K3 at the main path's largest sizes == plain and identical over {K3_REPEATS} runs: {cases} cases "
+        f"(positions over a 2^28-key flush run, two planes at {K3_FOLD}); rle_sorted of the run == "
+        "torch.unique_consecutive")
+    return cases
+
+
+def k3_mask_bytes(keep, planes_read: int, planes_written: int):
+    """Bytes a mask mode of K3 must move for this keep (its length a
+    multiple of 4): the flags, every 32-byte sector of each read plane that
+    holds a kept element (the least the card reads from device memory), and
+    the kept elements of each written plane.  Also the bytes if every
+    element of each read plane is read, for comparison."""
+    n, m = keep.shape[0], int(keep.sum())
+    sectors = int(keep.view(-1, 4).any(1).sum())
+    written = m * 8 * planes_written
+    return n + sectors * 32 * planes_read + written, n * (1 + 8 * planes_read) + written
+
+
+def k3_time(torch, fn, plain, library, library_name, n_bytes) -> dict:
+    """One K3 shape's record: fn's device time (and the kernel alone, by
+    torch.profiler), the plain version's, the library call's, the bound.
+    n_bytes: the bytes the shape must move, or that and the bytes with
+    every element read (k3_mask_bytes)."""
+    need, all_read = n_bytes if isinstance(n_bytes, tuple) else (n_bytes, None)
+    row = dict(ms=median_ms(torch, fn), kernel_alone_ms=kernel_ms(torch, fn, "compact_kernel"),
+               plain_ms=median_ms(torch, plain), library=library_name,
+               library_ms=median_ms(torch, library) if library else None, bound_ms=bound_ms(need))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    if all_read is not None:
+        row["bound_every_element_read_ms"] = bound_ms(all_read)
+    return row
 
 
 def phase_kernels(np, torch, codec, dev, rng):
@@ -449,49 +621,87 @@ def phase_kernels(np, torch, codec, dev, rng):
     t_l2 = median_ms(torch, lambda: torch.sort(torch.cat([ta, tb]), stable=True))
     log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts: kernel {t_k2:.3f} ms, plain {t_p2:.3f} ms, "
         f"library (keys only) {t_l2:.3f} ms, bound {bound_ms((ta.numel() + tb.numel()) * 32):.4f} ms")
+    # the sharded count's shapes: a shard's first forest merge (two
+    # received runs of ~2^22 keys) and its fold of a flush into its table
+    # (a quarter of the single table's)
+    a, b = sorted_keys(1 << 22, 1 << 20), sorted_keys(1 << 22, 1 << 20)
+    err = max(err, max_abs_err(torch, merge.merge(a, b)[0], merge.merge_plain(a, b)[0]))
+    log(f"K2 merge 2^22 + 2^22 keys (a shard's forest): kernel {median_ms(torch, lambda: merge.merge(a, b)):.4f} ms, "
+        f"plain {median_ms(torch, lambda: merge.merge_plain(a, b)):.4f} ms, library torch.sort(cat, stable) "
+        f"{median_ms(torch, lambda: torch.sort(torch.cat([a, b]), stable=True)):.4f} ms, "
+        f"bound {bound_ms((a.numel() + b.numel()) * 16):.4f} ms")
+    ta, tb, ca, cb = ta[: ta.shape[0] // 4], tb[: tb.shape[0] // 4], ca[: ca.shape[0] // 4], cb[: cb.shape[0] // 4]
+    gk, gp = merge.merge(ta, tb, ca, cb)
+    pk, pp = merge.merge_plain(ta, tb, ca, cb)
+    err = max(err, max_abs_err(torch, gk, pk), max_abs_err(torch, gp, pp))
+    log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts (a shard's fold): kernel "
+        f"{median_ms(torch, lambda: merge.merge(ta, tb, ca, cb)):.4f} ms, plain "
+        f"{median_ms(torch, lambda: merge.merge_plain(ta, tb, ca, cb)):.4f} ms, library (keys only) "
+        f"{median_ms(torch, lambda: torch.sort(torch.cat([ta, tb]), stable=True)):.4f} ms, "
+        f"bound {bound_ms((ta.numel() + tb.numel()) * 32):.4f} ms")
     check(err == 0, "K2 agrees with its plain version")
     rec["K2"]["max_abs_err"] = err
     del a, b, ta, tb, ca, cb, gk, gp, pk, pp
     torch.cuda.synchronize()
 
-    # K3: 2^25 elements, two planes, three densities
+    # K3: every mode against its plain version, each case 20 times and byte
+    # for byte against its first run (k3_exhaustive); then the main path's
+    # shapes, timed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    k3_exhaustive(np, torch, codec, dev, gen)
+    k3_main_path_sizes(torch, dev, gen)
+    rows = {}
     n = 1 << 25
-    x0 = torch.randint(-(1 << 62), 1 << 62, (n,), device=dev)
-    x1 = torch.arange(n, device=dev)
+    x0, x1 = k3_keys(torch, dev, n, gen), k3_keys(torch, dev, n, gen)
     err = 0.0
-    for density in (0.03, 0.5, 0.97):
-        keep = torch.rand(n, device=dev) < density
+    for density in (0.03, 0.5, 0.97):  # combine_sorted_unique's two planes
+        keep = torch.rand(n, device=dev, generator=gen) < density
         (g0, g1), gn = compact.compact([x0, x1], keep)
         (p0, p1), pn = compact.compact_plain([x0, x1], keep)
-        m = int(gn)
-        check(m == int(pn), "K3 kept count")
+        m = int(pn)
+        check(int(gn) == m, "K3 kept count")
         err = max(err, max_abs_err(torch, g0[:m], p0), max_abs_err(torch, g1[:m], p1))
-        t_k = median_ms(torch, lambda: compact.compact([x0, x1], keep))
-        t_p = median_ms(torch, lambda: compact.compact_plain([x0, x1], keep))
-        t_l = median_ms(torch, lambda: (x0[keep], x1[keep]))
-        t_b = bound_ms(n * (1 + 16) + m * 16)
-        log(f"K3 compact 2^25 x 2 planes density {density}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-            f"library x[keep] per plane {t_l:.3f} ms, bound {t_b:.4f} ms")
-        if density == 0.5:
-            rec["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
-    # K3 at the sketch's shape: one plane, the hashes of a 2^24 batch, at
-    # density 1/1000 (the survivors of scaled = 1000)
-    n = 1 << 24
-    h = x0[:n].clone()
-    keep = torch.rand(n, device=dev) < 1e-3
-    (g0,), gn = compact.compact([h], keep)
-    (p0,), pn = compact.compact_plain([h], keep)
-    m = int(gn)
-    check(m == int(pn), "K3 kept count at density 1/1000")
-    err = max(err, max_abs_err(torch, g0[:m], p0))
-    t_k = median_ms(torch, lambda: compact.compact([h], keep))
-    t_p = median_ms(torch, lambda: compact.compact_plain([h], keep))
-    t_l = median_ms(torch, lambda: h[keep])
-    log(f"K3 compact 2^24 x 1 plane density 1/1000 ({m} kept): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"library x[keep] {t_l:.4f} ms, bound {bound_ms(n * 9 + m * 8):.4f} ms")
+        rows[f"two planes, 2^25, density {density}"] = k3_time(
+            torch, lambda: compact.compact([x0, x1], keep), lambda: compact.compact_plain([x0, x1], keep),
+            lambda: (x0[keep], x1[keep]), "x0[keep], x1[keep]", k3_mask_bytes(keep, 2, 2))
     check(err == 0, "K3 agrees with its plain version")
-    rec["K3"]["max_abs_err"] = err
-    del x0, x1, h, keep, g0, g1, p0, p1
+    rec["K3"] = dict(rows["two planes, 2^25, density 0.5"], max_abs_err=err)
+    del g0, g1, p0, p1
+    # the fold's size: a ~40 M-key table and a ~9 M-key flush, nearly disjoint
+    f0, f1 = k3_keys(torch, dev, K3_FOLD, gen), k3_keys(torch, dev, K3_FOLD, gen)
+    keep = torch.rand(K3_FOLD, device=dev, generator=gen) < 0.97
+    rows[f"two planes, {K3_FOLD} (the fold), density 0.97"] = k3_time(
+        torch, lambda: compact.compact([f0, f1], keep), lambda: compact.compact_plain([f0, f1], keep),
+        lambda: (f0[keep], f1[keep]), "x0[keep], x1[keep]", k3_mask_bytes(keep, 2, 2))
+    del f0, f1
+    # the flush's rle_sorted: the heads of its sorted 2^28-key run, before
+    # n_valid (positions mode, the kernel writes the indices)
+    run, heads, n_valid = k3_flush_run(torch, dev, gen)
+    kept = heads & (torch.arange(K3_FLUSH, device=dev) < n_valid)
+    rows["positions, 2^28 flush run, its heads (~0.1), limit n_valid (the flush's rle_sorted)"] = k3_time(
+        torch, lambda: compact.compact_positions(run, heads, n_valid),
+        lambda: compact.compact_positions_plain(run, heads, n_valid), None, None, k3_mask_bytes(kept, 1, 2))
+    del run, heads, kept
+    # membership_sorted: one plane over a merge of 2^24 DB rows and 2^24 queries
+    keep = torch.rand(n, device=dev, generator=gen) < 0.5
+    rows["one plane, 2^25, density 0.5"] = k3_time(
+        torch, lambda: compact.compact([x0], keep), lambda: compact.compact_plain([x0], keep),
+        lambda: x0[keep], "x[keep]", k3_mask_bytes(keep, 1, 1))
+    # membership: a 2^24 query batch, 97 % valid (positions mode)
+    n = 1 << 24
+    q, keep = x0[:n], torch.rand(n, device=dev, generator=gen) < 0.97
+    rows["positions, 2^24, density 0.97"] = k3_time(
+        torch, lambda: compact.compact_positions(q, keep), lambda: compact.compact_positions_plain(q, keep),
+        None, None, k3_mask_bytes(keep, 1, 2))
+    # the sketch: the hashes of a 2^24 batch at density 1/1000 (the
+    # survivors of scaled = 1000)
+    keep = torch.rand(n, device=dev, generator=gen) < 1e-3
+    m = int(keep.sum())
+    rows[f"one plane, 2^24, density 1/1000 ({m} kept)"] = k3_time(
+        torch, lambda: compact.compact([q], keep), lambda: compact.compact_plain([q], keep),
+        lambda: q[keep], "x[keep]", k3_mask_bytes(keep, 1, 1))
+    del x0, x1, q, keep
     torch.cuda.synchronize()
 
     # K4: a cluster of 1 to 8 CTAs sorts each n below, with duplicates and
@@ -518,26 +728,29 @@ def phase_kernels(np, torch, codec, dev, rng):
     torch.cuda.synchronize()
 
     # the sharded count's route step on one shard's block of a 2^24 batch
-    # cut four ways: the owner chain (mix32, elementwise torch ops) and one
-    # K3 pass per destination.  Not a kernel of its own; its bound is the
-    # keys read once and every valid key written once.
+    # cut four ways: one K3 launch in route mode (owners in registers, the
+    # sentinel dropped, four rows); its bound is the keys read once and
+    # every valid key written once.  The plain chain is today's torch
+    # version of the same step (owner chain, S masks, S keys[mask]).
     n = 1 << 22
     lanes, inv = pack_for_transfer(codec.seq_to_codes(codes[: n - 5]), n)
     keys, n_valid = extract.extract_keys(
         torch.from_numpy(lanes.view(np.int32)).to(dev), torch.from_numpy(inv.view(np.int32)).to(dev), 31, n - 7)
     valid = keys != SENTINEL_KEY
-    owner = sharded.owner_of(keys, 4)
+    owner = hash_ops.owner_of(keys, 4)
+    before = compact.launches
     segments = sharded.route_to_owners(keys, 4)
+    check(compact.launches == before + 1, "route step: one K3 launch for four destinations")
     for d, seg in enumerate(segments):
         check(torch.equal(seg, keys[valid & (owner == d)]), f"route step: destination {d} == keys[valid & (owner == d)]")
     check(sum(seg.shape[0] for seg in segments) == int(n_valid), "route step: every valid key routed once")
-    t_r = median_ms(torch, lambda: sharded.route_keys(keys, 4))
-    t_o = median_ms(torch, lambda: (keys != SENTINEL_KEY, sharded.owner_of(keys, 4)))
-    t_c = median_ms(torch, lambda: [compact.compact([keys], valid & (owner == d)) for d in range(4)])
-    log(f"route step (not a kernel), 2^22 keys, k = 31, S = 4: {t_r:.4f} ms, of which the owner chain "
-        f"{t_o:.4f} ms and the 4 masks and K3 passes {t_c:.4f} ms; bound {bound_ms(n * 8 + int(n_valid) * 8):.4f} ms")
+    for n_dest in (4, 8):
+        rows[f"route, 2^22 k = 31 keys, S = {n_dest}"] = k3_time(
+            torch, lambda: compact.partition(keys, n_dest), lambda: compact.partition_plain(keys, n_dest),
+            None, None, n * 8 + int(n_valid) * 8)
     del keys, valid, owner, segments
     torch.cuda.synchronize()
+    log(f"K3 rows: {json.dumps(rows)}")
 
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
@@ -550,9 +763,10 @@ def phase_kernels(np, torch, codec, dev, rng):
 
 
 def kernels_on_card(np, torch, codec, dev, rng):
-    """K1-K4 against their plain versions with their operands on `dev`
-    while another card is the current one: each launch must follow its
-    operands (K1 also opts in to its shared memory per device)."""
+    """K1-K4 (K3 in every mode) against their plain versions with their
+    operands on `dev` while another card is the current one: each launch
+    must follow its operands (K1 also opts in to its shared memory per
+    device)."""
     from orion_kmer_tpu_torch.host import pack_for_transfer
     from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
 
@@ -571,10 +785,12 @@ def kernels_on_card(np, torch, codec, dev, rng):
     b = torch.sort(torch.randint(-(1 << 40), 1 << 40, (n + 77,), device=dev)).values
     err = max(err, max_abs_err(torch, merge.merge(a, b)[0], merge.merge_plain(a, b)[0]))
     keep = torch.rand(n, device=dev) < 0.5
-    (g0,), gn = compact.compact([a], keep)
-    (p0,), pn = compact.compact_plain([a], keep)
-    check(int(gn) == int(pn), f"K3 kept count on {dev}")
-    err = max(err, max_abs_err(torch, g0[: int(gn)], p0))
+    limit = torch.tensor(n // 3, device=dev)
+    for args in (([a], keep), ([a, b[:n]], keep)):
+        k3_run(torch, f"on {dev}", compact.compact, compact.compact_plain, *args)
+    k3_run(torch, f"positions on {dev}", compact.compact_positions, compact.compact_positions_plain, a, keep, limit)
+    for n_dest in (4, 5):
+        k3_run(torch, f"route on {dev}, S = {n_dest}", compact.partition, compact.partition_plain, b, n_dest)
     err = max(err, max_abs_err(torch, sort.sort_pairs(b[:12289].flip(0)), b[:12289]))
     torch.cuda.synchronize(dev)
     check(err == 0, f"K1-K4 agree with their plain versions on {dev}")
@@ -728,7 +944,6 @@ def phase_exact(np, codec, work: Path, rng):
 
 def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     from orion_kmer_tpu_torch import cli
-    from orion_kmer_tpu_torch.ops import compact, extract, merge
 
     fq = work / "reads.fastq"
     t0 = time.monotonic()
@@ -739,12 +954,12 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    extract.launches = merge.launches = compact.launches = 0
+    zero_counters()
     t0 = time.monotonic()
     rc = cli.main(["count", "-k", "31", "-m", "2", "--histogram", str(hist), "-i", str(fq), "-o", str(out)])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"K1": extract.launches, "K2": merge.launches, "K3": compact.launches}
+    launches = read_counters()
     check(rc == 0, "count exit code")
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -759,8 +974,8 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         f"{int(h[:, 1].sum())} distinct, {vals.shape[0]} with count >= 2, "
         f"peak device memory {peak / 2**30:.3f} GiB; card: {gpu_name_and_limit()}")
     log(f"launches in the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched in the main path")
+    for name in ("K1", "K2", "K3"):
+        check(launches[name] > 0, f"{name} launched in the main path")
     return launches, fq, out, n_reads, n_windows, genome, read_sample
 
 
@@ -770,22 +985,45 @@ def kernel_modules():
     return {"K1": extract, "K2": merge, "K3": compact, "K4": sort}
 
 
+def add_modes(dicts) -> dict:
+    """K3's launches by mode, summed over runs."""
+    total = {}
+    for d in dicts:
+        for mode, n in d.items():
+            total[mode] = total.get(mode, 0) + n
+    return total
+
+
+def zero_counters():
+    """Every kernel's launch count, and K3's by mode, to 0."""
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.launches = 0
+    kernels["K3"].by_mode.clear()
+
+
+def read_counters():
+    """Launches of K1-K4 since zero_counters, and K3's by mode."""
+    kernels = kernel_modules()
+    out = {name: mod.launches for name, mod in kernels.items()}
+    out["K3 modes"] = dict(kernels["K3"].by_mode)
+    return out
+
+
 def drive(torch, dev, argv):
     """One command through the port's CLI in this process, with the launch
     counters zeroed just before it: (wall s, launches, peak device bytes)."""
     from orion_kmer_tpu_torch import cli
 
-    kernels = kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for mod in kernels.values():
-        mod.launches = 0
+    zero_counters()
     t0 = time.monotonic()
     rc = cli.main([str(a) for a in argv])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     check(rc == 0, f"{argv[0]} exit code")
-    return wall, {name: mod.launches for name, mod in kernels.items()}, torch.cuda.max_memory_allocated(dev)
+    return wall, read_counters(), torch.cuda.max_memory_allocated(dev)
 
 
 def report(what, wall, launches, peak, extra=""):
@@ -866,13 +1104,12 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
 
     # K4's own path: no command reaches it, so drive its entry, sort_pairs,
     # on canonical 31-mers of the reads
-    for mod in kernels.values():
-        mod.launches = 0
+    zero_counters()
     vals = np.concatenate([codec.extract_kmers_np(codec.seq_to_codes(sample[i]), k) for i in picked[:200]])
     for m in (1 << 14, 12289):
         got = u64_from_keys(sort.sort_pairs(keys_from_u64(vals[:m]).to(dev)))
         check(np.array_equal(got, np.sort(vals[:m])), f"sort_pairs of {m} keys == np.sort")
-    runs["sort_pairs"] = {name: mod.launches for name, mod in kernels.items()}
+    runs["sort_pairs"] = read_counters()
     log(f"sort_pairs entry: launches {runs['sort_pairs']}")
     check(runs["sort_pairs"]["K4"] == 2, "K4 launched by its entry")
     return runs, refs, db, (vals_tsv, counts_tsv)
@@ -1179,6 +1416,7 @@ def phase_sharded(np, torch, codec, work: Path, fq, count_tsv, n_windows, big_fa
     check(stats["positions"] > n_windows, "every position of the reads went through the sharded table")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} launched in the sharded count")
+    check(launches["K3 modes"].get("route") == launches["K1"], "the route: one K3 launch per block (K1 launch)")
     runs["count, 4 shards"] = launches
 
     out = work / "big_s3.tsv"
@@ -1186,11 +1424,10 @@ def phase_sharded(np, torch, codec, work: Path, fq, count_tsv, n_windows, big_fa
     check(out.read_bytes() == oracle_tsv21, "count k=21, 3 shards, TSV == oracle")
     report("count -k 21 of the 9 Mbp FASTA, ORION_KMER_SHARDS=3 (byte-exact)", wall, launches, peak)
     log(f"stats_report: {stats}")
+    check(launches["K3 modes"].get("route") == launches["K1"], "the route: one K3 launch per block (K1 launch)")
     runs["count, 3 shards"] = launches
 
-    kernels = kernel_modules()
-    for mod in kernels.values():
-        mod.launches = 0
+    zero_counters()
     codes = codec.seq_to_codes(b"T" * 40)
     for n_shards in (3, 4):
         vals, counts = sharded_count(codes, codes > 3, 32, make_mesh(n_shards))
@@ -1201,7 +1438,7 @@ def phase_sharded(np, torch, codec, work: Path, fq, count_tsv, n_windows, big_fa
         table.update(codes)
         vals, counts = table.result()
         check(vals.tolist() == [0] and counts.tolist() == [18], f"ShardedCountTable, T*40 twice at k=32, {n_shards} shards")
-    runs["sharded T*40 edge"] = {name: mod.launches for name, mod in kernels.items()}
+    runs["sharded T*40 edge"] = read_counters()
     log(f"sharded_count and ShardedCountTable on the T*40 k = 32 edge: exact; launches {runs['sharded T*40 edge']}")
     return runs
 
@@ -1224,7 +1461,8 @@ exp_v, exp_c = np.unique(codec.extract_kmers_np(codes, 31), return_counts=True)
 assert np.array_equal(vals, exp_v) and np.array_equal(counts, exp_c)
 torch.cuda.synchronize()
 dist.destroy_process_group()
-print(json.dumps({"unique": int(vals.shape[0]), "K1": extract.launches, "K3": compact.launches, "stats": stats}))
+print(json.dumps({"unique": int(vals.shape[0]), "K1": extract.launches, "K3": compact.launches,
+                  "K3 modes": compact.by_mode, "stats": stats}))
 """
 
 # two ranks of two shards each count the 9 Mbp FASTA at k = 21: a warm-up
@@ -1250,6 +1488,7 @@ multihost_sharded_count(edge, edge > 3, 21, "cuda", devices=mesh)
 for card in set(mesh):
     torch.cuda.synchronize(card)
 extract.launches = compact.launches = 0
+compact.by_mode.clear()
 dist.barrier()
 t0 = time.perf_counter()
 stats = {}
@@ -1259,7 +1498,7 @@ if dist.get_rank() == 0:
     np.save(out + ".vals.npy", vals)
     np.save(out + ".counts.npy", counts)
 print(json.dumps({"rank": dist.get_rank(), "devices": [str(d) for d in mesh], "wall_s": round(wall, 3),
-                  "K1": extract.launches, "K3": compact.launches, "stats": stats}))
+                  "K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode, "stats": stats}))
 dist.destroy_process_group()
 """
 
@@ -1294,7 +1533,8 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
             f"process start; unique {[c['unique'] for c in res['counts']]}; k = 9 stats {res['a2a_stats']}; "
             f"launches {res['launches']}")
         runs[f"two ranks x {shards} shard(s)"] = {
-            "K1": sum(r["K1"] for r in res["launches"]), "K2": 0, "K3": sum(r["K3"] for r in res["launches"])}
+            "K1": sum(r["K1"] for r in res["launches"]), "K2": 0, "K3": sum(r["K3"] for r in res["launches"]),
+            "K3 modes": add_modes(r["K3 modes"] for r in res["launches"])}
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1309,7 +1549,7 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
           "the lone nccl rank took every card and launched K1 and K3 on each")
     log(f"one rank over nccl, one shard on each of {n_cards} card(s), 2^20 positions at k = 31: == oracle, "
         f"{got['unique']} unique, {time.monotonic() - t0:.1f} s with process start; {got}")
-    runs["one nccl rank"] = {"K1": got["K1"], "K2": 0, "K3": got["K3"]}
+    runs["one nccl rank"] = {"K1": got["K1"], "K2": 0, "K3": got["K3"], "K3 modes": got["K3 modes"]}
 
     t0 = time.monotonic()
     out = work / "big_ranks"
@@ -1319,13 +1559,15 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
     check(render_tsv(np, vals, counts, 21) == oracle_tsv21, "two ranks x 2 shards, 9 Mbp at k = 21 == oracle")
     for r in ranks:
         st = r["stats"]
-        check(st["n_shards"] == 4 and st["n_processes"] == 2 and r["K1"] == 2 and r["K3"] == 2 * 4 + 2,
-              "each rank extracted its two blocks, routed each four ways and encoded its two owners")
+        check(st["n_shards"] == 4 and st["n_processes"] == 2 and r["K1"] == 2 and r["K3"] == 2 + 2
+              and r["K3 modes"] == {"route": 2, "positions": 2},
+              "each rank extracted its two blocks, routed each four ways in one K3 pass and encoded its two owners")
         log(f"two ranks x 2 shards, count of the 9 Mbp FASTA at k = 21, rank {r['rank']} on {r['devices']}: "
             f"== oracle, wall {r['wall_s']:.3f} s (warm, first call excluded), launches K1 {r['K1']} K3 {r['K3']}, "
             f"stats {st}")
     log(f"two ranks x 2 shards on the 9 Mbp FASTA: {time.monotonic() - t0:.1f} s with process start")
-    runs["two ranks x 2 shards, 9 Mbp"] = {"K1": sum(r["K1"] for r in ranks), "K2": 0, "K3": sum(r["K3"] for r in ranks)}
+    runs["two ranks x 2 shards, 9 Mbp"] = {"K1": sum(r["K1"] for r in ranks), "K2": 0, "K3": sum(r["K3"] for r in ranks),
+                                           "K3 modes": add_modes(r["K3 modes"] for r in ranks)}
     return runs
 
 
@@ -1417,6 +1659,7 @@ def main() -> int:
         log(f"launches of {name}: {r}")
     total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3")}
     total["K4"] = runs["sort_pairs"]["K4"]
+    log(f"K3 launches by mode, summed as K3 is: {add_modes(r.get('K3 modes', {}) for name, r in runs.items())}")
     pkg = "orion_kmer_tpu_torch/csrc"
     kernels = [
         ("K1 extract", f"{pkg}/extract.cu", "orion_kmer_tpu/ops/kmers_pallas.py:29"),

@@ -48,9 +48,9 @@ _SIGNATURES = {
     "okt_extract": (ctypes.c_int, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "okt_merge_scratch": (_I, [_I]),
     "okt_merge": (ctypes.c_int, [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P]),
-    "okt_compact_blocks": (_I, [_I]),
-    "okt_compact_count": (ctypes.c_int, [_P, _I, _P, _P]),
-    "okt_compact_scatter": (ctypes.c_int, [_P, _I, _P, _P, _P, _P, _P, _P]),
+    "okt_compact_workspace": (_I, [_I, _I]),
+    "okt_compact": (ctypes.c_int, [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "okt_compact_route": (ctypes.c_int, [_P, _I, _I, _P, _P, _P]),
     "okt_sort_max_n": (_I, []),
     "okt_sort": (ctypes.c_int, [_P, _I, _P, _P]),
     "okt_error_string": (ctypes.c_char_p, [ctypes.c_int]),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .compact import compact
+from .compact import compact, compact_positions
 from .extract import extract_keys
 from .merge import merge
 
@@ -45,13 +45,12 @@ def rle_sorted(keys, n_valid):
     """Run-length encode a raw run.  Returns (unique keys, counts), int64
     tensors of exactly the unique count (one host sync).
 
-    Heads are compacted with their positions; a run's count is the next
-    head's position minus its own (n_valid after the last head)."""
-    n = keys.shape[0]
-    idx = torch.arange(n, device=keys.device)
-    prev = torch.cat([keys[:1], keys[:-1]])
-    is_head = ((keys != prev) | (idx == 0)) & (idx < n_valid)
-    (ukeys, upos), n_u = compact([keys, idx], is_head)
+    Heads before n_valid are compacted with their positions, which K3
+    writes itself; a run's count is the next head's position minus its
+    own (n_valid after the last head)."""
+    is_head = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    torch.ne(keys[1:], keys[:-1], out=is_head[1:])
+    (ukeys, upos), n_u = compact_positions(keys, is_head, n_valid)
     m = int(n_u)
     ukeys, upos = _exact(ukeys, m), upos[:m]
     nxt = torch.cat([upos[1:], n_valid.reshape(1).to(upos.dtype)])

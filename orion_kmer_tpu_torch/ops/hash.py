@@ -1,5 +1,5 @@
 """64-bit hashes of the port's keys: splitmix64 (FracMinHash sketching)
-and mix32 (hash-range shard routing).
+and mix32 with the owner it gives (hash-range shard routing).
 
 The torch counterparts of ``orion_kmer_tpu/ops/hash.py``'s
 ``splitmix64_pair`` and ``mix32_pair``, in native 64-bit arithmetic: the
@@ -59,6 +59,15 @@ def mix32(keys: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = (x * 0x846CA68B) & M32
     return x ^ (x >> 16)
+
+
+def owner_of(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The owner shard of each flipped int64 key, from the top 16 bits of
+    its mix32 hash: floor(h / 2^16 * S / 2^16), uniform for any S.  The
+    same formula as the JAX package's ``_owner_of``, so the two packages
+    place every k-mer on the same shard; K3's route computes it in
+    registers (``csrc/compact.cu``)."""
+    return ((mix32(keys) >> 16) * n_shards) >> 16
 
 
 def splitmix64_np(x: np.ndarray) -> np.ndarray:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..keys import SENTINEL_KEY
-from .compact import compact
+from .compact import compact, compact_positions
 from .merge import merge
 
 
@@ -67,8 +67,7 @@ def membership(q_keys, q_valid, db_keys):
     match; db_keys: sorted unique int64 keys.  Returns bool[len(q_keys)]
     in query order."""
     nq = q_keys.shape[0]
-    pos = torch.arange(nq, device=q_keys.device)
-    (vkeys, vpos), n_valid = compact([q_keys, pos], q_valid)
+    (vkeys, vpos), n_valid = compact_positions(q_keys, q_valid)
     m = int(n_valid)
     skeys, order = torch.sort(vkeys[:m])
     return member_positions(db_keys, skeys, vpos[:m][order], nq)

@@ -38,10 +38,11 @@ import torch.distributed as dist
 
 from ..engine import to_device
 from ..keys import u64_from_keys
+from ..ops.compact import partition
 from ..ops.count import rle_sorted
 from ..ops.extract import extract_keys
 from .mesh import make_mesh
-from .sharded import fetch_counts, route_keys, shard_blocks
+from .sharded import fetch_counts, shard_blocks
 from .streaming import _pack_blocks
 
 logger = logging.getLogger("orion_kmer_tpu_torch.parallel.distributed")
@@ -160,8 +161,8 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
     rank's shards sit on ``devices`` (what ``make_mesh`` takes; by default
     ``rank_devices(device)``, the rank's share of the host's cards); the
     global shard ids are rank-major, S in all.  Each local shard extracts
-    its block (K1) and splits its keys by owner (``route_keys``, K3, one
-    pass per global destination); one all-gather of the local rows of
+    its block (K1) and splits its keys by owner (``ops.compact.partition``:
+    one K3 pass for all S global destinations); one all-gather of the local rows of
     routed counts gives every rank the S x S table, so every split size is
     known without a second round trip.  Segments for a shard of this rank
     are peer copies; the rest cross in one ``all_to_all_single``, in
@@ -190,7 +191,7 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
     bufs, counts = [], []
     for s, dev in enumerate(mesh):
         keys, _ = extract_keys(to_device(lanes[s], dev), to_device(inv_words[s], dev), k, block)
-        b, c = route_keys(keys, S)
+        b, c = partition(keys, S)
         bufs.append(b)
         counts.append(c)
     local_rows = torch.from_numpy(fetch_counts(counts, mesh).reshape(-1))
@@ -336,7 +337,7 @@ for name, k, c in (("k=9", 9, codes), ("k=21", 21, codes), ("k=32", 32, codes), 
     np.testing.assert_array_equal(counts, exp_c)
     counts_done.append({"count": name, "unique": int(vals.shape[0]), "stats": stats})
 print(json.dumps({"rank": dist.get_rank(), "devices": [str(d) for d in mesh], "counts": counts_done,
-                  "launches": {"K1": extract.launches, "K3": compact.launches}}))
+                  "launches": {"K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode}}))
 dist.destroy_process_group()
 '''
 

@@ -8,8 +8,9 @@ layout:
      every window is produced by exactly one block (data parallelism:
      each shard extracts its block's canonical keys with K1);
   2. each key goes to its owner shard, the owner being a range of the
-     ``mix32`` hash space (the table axis): one K3 compaction per
-     destination, which returns the exact count of keys for it;
+     ``mix32`` hash space (the table axis): one K3 pass in route mode
+     splits a block S ways and returns the exact count of keys for each
+     destination;
   3. each owner sorts and run-length encodes what it received; the
      shards' outputs are disjoint, so no second reduction is needed.
 
@@ -24,18 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..keys import SENTINEL_KEY, u64_from_keys
-from ..ops.compact import compact
+from ..keys import u64_from_keys
+from ..ops.compact import partition
 from ..ops.count import rle_sorted
-from ..ops.hash import mix32
-
-
-def owner_of(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """The owner shard of each flipped int64 key, from the top 16 bits of
-    its mix32 hash: floor(h / 2^16 * S / 2^16), uniform for any S.  The
-    same formula as the JAX package's ``_owner_of``, so the two packages
-    place every k-mer on the same shard."""
-    return ((mix32(keys) >> 16) * n_shards) >> 16
 
 
 def shard_blocks(codes: np.ndarray, invalid: np.ndarray, k: int, n_shards: int):
@@ -62,35 +54,18 @@ def shard_blocks(codes: np.ndarray, invalid: np.ndarray, k: int, n_shards: int):
     return out_codes.reshape(-1), out_invalid.reshape(-1), block
 
 
-def route_keys(keys: torch.Tensor, n_shards: int):
-    """Split one block's K1 keys (SENTINEL_KEY where the window is invalid)
-    by owner, without waiting for the device.
-
-    Returns (bufs, counts): ``bufs[d]`` starts with the keys owned by
-    shard d, in position order, and ``counts`` (int64[S], on the keys'
-    device) says how many.  One K3 compaction per destination; the
-    sentinel is masked out before anything is routed."""
-    valid = keys != SENTINEL_KEY
-    owner = owner_of(keys, n_shards)
-    bufs, counts = [], []
-    for d in range(n_shards):
-        (buf,), n_kept = compact([keys], valid & (owner == d))
-        bufs.append(buf)
-        counts.append(n_kept)
-    return bufs, torch.stack(counts)
-
-
 def route_to_owners(keys: torch.Tensor, n_shards: int) -> list[torch.Tensor]:
-    """``route_keys`` with the counts fetched (one transfer): per
-    destination shard, the segment of exactly the keys it owns."""
-    bufs, counts = route_keys(keys, n_shards)
+    """``ops.compact.partition`` (the route: one K3 pass) with the counts
+    fetched (one transfer): per destination shard, the segment of exactly
+    the keys it owns."""
+    bufs, counts = partition(keys, n_shards)
     return [buf[:m] for buf, m in zip(bufs, counts.tolist())]
 
 
 def fetch_counts(counts: list[torch.Tensor], mesh: list[torch.device]) -> np.ndarray:
     """The table of routed counts (row = source shard of ``mesh``, column
     = destination shard) from the per-source count vectors of
-    ``route_keys``: one transfer per distinct device, made after every
+    ``ops.compact.partition``: one transfer per distinct device, made after every
     shard's work has been enqueued.  S x S for a mesh that holds every
     shard; a process's rows of the global table for a part of it."""
     table = np.empty((len(mesh), counts[0].shape[0]), dtype=np.int64)

@@ -6,9 +6,9 @@ single-device pipeline (``engine.DeviceCountTable``) generalizes to S
 shards with the same stages:
 
   1. per batch, every shard extracts the canonical keys of its halo-split
-     block (K1), splits them by hash-range owner (one K3 compaction per
-     destination) and ships each destination its exact segment; every
-     shard sorts what it received (``torch.sort``);
+     block (K1), splits them by hash-range owner (one K3 pass in route
+     mode for all S destinations) and ships each destination its exact
+     segment; every shard sorts what it received (``torch.sort``);
   2. each shard accumulates its sorted runs in its own merge forest (K2):
      a shard merges only its own hash range, so nothing crosses shards
      after the routing;
@@ -35,9 +35,10 @@ import torch
 from ..engine import DeviceCountTable, to_device
 from ..host import CountAccumulator, _bucket, pack_for_transfer
 from ..ingest import native
+from ..ops.compact import partition
 from ..ops.extract import extract_keys
 from .mesh import make_mesh
-from .sharded import exchange, fetch_counts, route_keys, shard_blocks
+from .sharded import exchange, fetch_counts, shard_blocks
 
 
 def _pack_blocks(blk_codes: np.ndarray, blk_invalid: np.ndarray, block: int):
@@ -85,7 +86,7 @@ def route_and_sort(codes: np.ndarray, invalid: np.ndarray, k: int, mesh: list[to
     bufs, counts = [], []
     for s, dev in enumerate(mesh):
         keys, _ = extract_keys(to_device(lanes[s], dev), to_device(inv_words[s], dev), k, block)
-        b, c = route_keys(keys, S)
+        b, c = partition(keys, S)
         bufs.append(b)
         counts.append(c)
     table = fetch_counts(counts, mesh)

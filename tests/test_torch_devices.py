@@ -42,7 +42,7 @@ class Recorder:
     def __getattr__(self, name):
         if not name.startswith("okt_"):
             raise AttributeError(name)
-        sizes = {"okt_extract_blocks": 3, "okt_compact_blocks": 2, "okt_merge_scratch": 5}
+        sizes = {"okt_extract_blocks": 3, "okt_compact_workspace": 7, "okt_merge_scratch": 5}
 
         def entry(*args):
             self.calls.append((name, self.guarded))
@@ -70,7 +70,11 @@ LAUNCHES = {
                    {"okt_extract_blocks", "okt_extract"}),
     "K2 merge": (merge, lambda: merge.merge(_meta(8), _meta(5), _meta(8), _meta(5)), {"okt_merge"}),
     "K3 compact": (compact, lambda: compact.compact([_meta(9), _meta(9)], _meta(9, torch.bool)),
-                   {"okt_compact_count", "okt_compact_scatter"}),
+                   {"okt_compact"}),
+    "K3 compact one plane": (compact, lambda: compact.compact([_meta(9)], _meta(9, torch.bool)), {"okt_compact"}),
+    "K3 compact positions": (compact, lambda: compact.compact_positions(_meta(9), _meta(9, torch.bool), _meta(())),
+                             {"okt_compact"}),
+    "K3 compact route": (compact, lambda: compact.partition(_meta(9), 5), {"okt_compact_route"}),
     "K4 sort": (sort, lambda: sort.sort_pairs(_meta(100)), {"okt_sort"}),
 }
 
@@ -100,7 +104,7 @@ def test_no_wrapper_calls_a_launching_entry_outside_the_guard():
     """Source check: in ops/, every call of a C entry that launches or
     reads the device sits in a ``with _kernels.on_device(...)`` block."""
     ops = Path(orion_kmer_tpu_torch.__file__).resolve().parent / "ops"
-    device_bound = re.compile(r"\.okt_(extract_blocks|extract|merge|compact_count|compact_scatter|sort)\(")
+    device_bound = re.compile(r"\.okt_(extract_blocks|extract|merge|compact|compact_route|sort)\(")
     for path in sorted(ops.glob("*.py")):
         guard_indent = None
         for line in path.read_text().splitlines():
@@ -123,3 +127,23 @@ def test_extract_keeps_its_configured_flag_per_device():
     assert src.count("cudaGetDevice(&dev)") == 2  # the grid's SM count and the flag
     for name in ("merge.cu", "compact.cu", "sort.cu"):
         assert "cudaFuncSetAttribute" not in (CSRC / name).read_text(), name
+
+
+def test_signatures_match_the_c_entries():
+    """Source check: every ``extern "C"`` entry of csrc/ is bound in
+    ``_kernels._SIGNATURES`` with its return type and one ctypes type per
+    parameter (pointers as c_void_p, int64_t as c_int64), and nothing else
+    is bound."""
+    import ctypes
+
+    ctype = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "const char*": ctypes.c_char_p}
+    found = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" ([\w ]+\*?) (okt_\w+)\(([^)]*)\)', text):
+            params = [p.strip() for p in m.group(3).split(",") if p.strip()]
+            types = [ctypes.c_void_p if "*" in p else ctype[p.rsplit(" ", 1)[0]] for p in params]
+            found[m.group(2)] = (ctype[m.group(1)], types)
+    assert set(found) == set(_kernels._SIGNATURES)
+    for name, (restype, argtypes) in _kernels._SIGNATURES.items():
+        assert (restype, list(argtypes)) == found[name], name

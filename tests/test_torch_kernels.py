@@ -12,7 +12,7 @@ import torch
 
 from orion_kmer_tpu_torch import _kernels, codec
 from orion_kmer_tpu_torch.host import pack_for_transfer
-from orion_kmer_tpu_torch.keys import keys_from_u64
+from orion_kmer_tpu_torch.keys import SENTINEL_KEY, keys_from_u64
 from orion_kmer_tpu_torch.ops import compact, extract, merge, setops, sort
 
 
@@ -52,6 +52,26 @@ def test_non_cpu_non_cuda_tensors_raise():
             5,
             64,
         )
+
+
+def test_cpu_path_of_every_k3_mode_never_loads_the_kernels(monkeypatch):
+    def no_kernels():
+        raise AssertionError("the CPU path asked for the CUDA kernels")
+
+    monkeypatch.setattr(_kernels, "lib", no_kernels)
+    x = torch.arange(10, dtype=torch.int64)
+    compact.compact([x, x], x > 3)
+    compact.compact_positions(x, x > 3, torch.tensor(7))
+    compact.partition(x, 3)
+
+
+def test_every_k3_mode_raises_on_non_cpu_non_cuda_tensors():
+    x = torch.empty(8, dtype=torch.int64, device="meta")
+    keep = torch.empty(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        compact.compact_positions(x, keep)
+    with pytest.raises(ValueError):
+        compact.partition(x, 4)
 
 
 def _wire(rng, n, size):
@@ -104,6 +124,61 @@ def test_compact_kernel_matches_plain(cuda, n, density):
     m = int(gn)
     assert m == int(en)
     assert torch.equal(e0, g0[:m].cpu()) and torch.equal(e1, g1[:m].cpu())
+
+
+# K3 ranks 2048-element tiles: empty, one element, a tile less and more one,
+# several tiles with a ragged end
+K3_SIZES = [0, 1, 2047, 2049, (1 << 20) + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K3_SIZES)
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: a view that is not 16-byte aligned
+def test_compact_one_plane_kernel_matches_plain(cuda, n, density, offset):
+    rng = np.random.default_rng(n + offset)
+    x = torch.from_numpy(rng.integers(-(2**62), 2**62, n + offset)).to(cuda)[offset:]
+    keep = torch.from_numpy(rng.random(n + offset) < density).to(cuda)[offset:]
+    (e,), en = compact.compact_plain([x], keep)
+    (g,), gn = compact.compact([x], keep)
+    m = int(gn)
+    assert m == int(en) and torch.equal(e, g[:m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K3_SIZES)
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.97, 1.0])
+@pytest.mark.parametrize("limit", [None, 0, 1000, 1 << 30])
+def test_compact_positions_kernel_matches_plain(cuda, n, density, limit):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(-(2**62), 2**62, n)).to(cuda)
+    keep = torch.from_numpy(rng.random(n) < density).to(cuda)
+    lim = None if limit is None else torch.tensor(limit, device=cuda)
+    (ek, ei), en = compact.compact_positions_plain(keys, keep, lim)
+    before = compact.launches
+    (gk, gi), gn = compact.compact_positions(keys, keep, lim)
+    assert compact.launches == before + (n > 0)
+    m = int(gn)
+    assert m == int(en) and torch.equal(ek, gk[:m]) and torch.equal(ei, gi[:m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K3_SIZES)
+@pytest.mark.parametrize("n_dest", [1, 2, 3, 4, 5, 8, 13])
+def test_partition_kernel_matches_plain(cuda, n, n_dest):
+    rng = np.random.default_rng(n * 31 + n_dest)
+    keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n + 1, dtype=np.int64)).to(cuda)
+    keys[torch.from_numpy(rng.random(n + 1) < 0.1).to(cuda)] = SENTINEL_KEY
+    keys = keys[1:]  # a view that is not 16-byte aligned
+    ebufs, ecounts = compact.partition_plain(keys, n_dest)
+    before = compact.launches
+    gbufs, gcounts = compact.partition(keys, n_dest)
+    assert compact.launches == before + (n > 0)
+    assert torch.equal(ecounts, gcounts)
+    for e, g, m in zip(ebufs, gbufs, gcounts.tolist()):
+        assert torch.equal(e, g[:m])
+    again = compact.partition(keys, n_dest)[0]
+    assert all(torch.equal(a[:m], g[:m]) for a, g, m in zip(again, gbufs, gcounts.tolist()))
 
 
 @pytest.mark.cuda
