@@ -9,9 +9,16 @@
 Phases, in order; any failure raises and exits non-zero:
   1. device: the card's name and power limit, native ingest status;
   2. build: compile the CUDA kernels of orion_kmer_tpu_torch/csrc, print
-     ptxas's registers and spills per kernel, fail if K1, K3 or K4 spills;
+     ptxas's registers and spills per kernel, fail if any kernel spills;
   3. kernels: K1 (extract, every k in 1..32 at two batch lengths), K2
-     (merge; also at the sharded count's shapes), K3 (compact: every mode
+     (merge in its three modes -- keys only, payload, the fold's sums and
+     keep flags -- at lengths around its tiles, with ties across tile
+     edges, one run below the other and long sentinel tails, each case 20
+     times and byte-equal to its first run; then at every main-path
+     shape: every level of the single table's and a shard's forest, up
+     to the flush's last merge of 2^27 + 2^27, the fold, a shard's fold,
+     the join; and the whole combine_sorted_unique at the fold's size), K3
+     (compact: every mode
      -- one and two planes, positions, the S-way route -- at lengths
      around its tile and up to 2^25, aligned and not, densities 0 to 1,
      S = 1..5 and 8, keys with the sentinel and A^32, and at the main
@@ -128,31 +135,56 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_MS
 
 
+SLEEP_CYCLES = 4_000_000  # ~2 ms at the card's clock
+SLEEP_CYCLES_MAX = 1 << 27  # ~68 ms
+
+
 def median_ms(torch, fn, calls: int = 20, reps: int = 7) -> float:
     """Device time of one fn() call: the median over reps of `calls`
     back-to-back calls between two CUDA events, divided by `calls`.  A
     sleep kernel holds the stream while the host enqueues the calls, so
-    the host's launch overhead between calls is not timed (unless fn
-    waits for the device itself, as boolean indexing does)."""
+    the host's launch overhead between calls is not timed.  Where the
+    sleep had already ended when the last call was enqueued (the start
+    event reached), the device may have waited on the host: that rep runs
+    again behind a sleep twice as long, up to SLEEP_CYCLES_MAX; a fn that
+    waits for the device itself (boolean indexing does) is still behind
+    there, and its later reps run behind the first sleep unchecked."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
-        torch.cuda._sleep(4_000_000)  # ~2 ms at the card's clock
+    cycles = SLEEP_CYCLES
+    queued_ms = None  # the host's time to queue the calls of the first rep it fell behind in
+    waits = False  # fn waits for the device: no sleep holds its calls
+    while len(times) < reps:
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        behind = start.query()
+        t1 = time.perf_counter()
         end.record()
         end.synchronize()
+        if behind and not waits:
+            if cycles < SLEEP_CYCLES_MAX:
+                queued_ms = queued_ms or (t1 - t0) * 1e3
+                cycles *= 2
+                continue
+            waits, cycles = True, SLEEP_CYCLES
         times.append(start.elapsed_time(end) / calls)
+    if cycles > SLEEP_CYCLES:
+        log(f"median_ms: the host took {queued_ms:.3f} ms to queue {calls} calls, longer than a "
+            f"{SLEEP_CYCLES}-cycle sleep held the card; timed behind {cycles} cycles")
     return statistics.median(times)
 
 
 def kernel_ms(torch, fn, name: str, calls: int = 20):
-    """Device time per call of the kernels whose name contains `name`, by
-    torch.profiler; None where the profiler saw no such kernel."""
+    """Device time of one launch of the kernel whose name contains `name`
+    (fn launches it once a call), by torch.profiler: the mean over the
+    launches it recorded, since it may drop some records; None where it
+    saw no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -161,8 +193,11 @@ def kernel_ms(torch, fn, name: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = [e.device_time_total for e in prof.key_averages() if name in e.key]
-    return sum(us) / calls / 1000 if us else None
+    seen = [e for e in prof.key_averages() if name in e.key]
+    n = sum(e.count for e in seen)
+    if n and n != calls:
+        log(f"kernel_ms: torch.profiler recorded {n} launches of {name} in {calls} calls")
+    return sum(e.device_time_total for e in seen) / n / 1000 if n else None
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -358,8 +393,8 @@ def write_query_reads(np, path: Path, rng, records, n: int = 20_000):
 # ---------------------------------------------------------------- phases
 
 
-# kernels held to zero spill bytes (the redesigned K1, K3 and K4)
-NO_SPILL = ("extract_kernel", "compact_kernel", "cluster_sort_kernel")
+# kernels held to zero spill bytes (the redesigned K1-K4)
+NO_SPILL = ("extract_kernel", "merge_kernel", "compact_kernel", "cluster_sort_kernel")
 
 
 def check_ptxas(report) -> None:
@@ -542,6 +577,206 @@ def k3_time(torch, fn, plain, library, library_name, n_bytes) -> dict:
     return row
 
 
+def k2_tiles() -> tuple:
+    """Outputs a block of csrc/merge.cu merges, keys only and with a
+    payload: kThreads * kItemsKeys and kThreads * kItemsPayload."""
+    src = (ROOT / "orion_kmer_tpu_torch" / "csrc" / "merge.cu").read_text()
+    threads, keys, payload = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                              for c in ("kThreads", "kItemsKeys", "kItemsPayload"))
+    return threads * keys, threads * payload
+
+
+K2_REPEATS = 20
+K2_FOLD = (40_000_000, 9_000_000)  # combine_sorted_unique's fold: a ~40 M-key table and a ~9 M-key flush
+K2_JOIN = (11_000_000, 1 << 24)  # setops._merged: the DB of three references and a 2^24-window query batch
+
+
+def k2_call(mode, args, plain=False):
+    """K2 in one mode, or its plain version: the merged keys, and the
+    payload or (for the fold) the sums and the keep mask."""
+    from orion_kmer_tpu_torch.ops import merge
+
+    a, b, pa, pb = args
+    if mode == "fold":
+        if not plain:
+            return merge.merge_combine(a, b, pa, pb)
+        keys, cnt = merge.merge_plain(a, b, pa, pb)
+        return (keys, *merge.combine_merged_plain(keys, cnt))
+    fn = merge.merge_plain if plain else merge.merge
+    keys, payload = fn(a, b, pa, pb) if mode == "payload" else fn(a, b)
+    return (keys,) if payload is None else (keys, payload)
+
+
+def k2_run(torch, what: str, mode: str, args) -> float:
+    """K2 against its plain version, then K2_REPEATS - 1 more runs, each
+    equal to the first byte for byte.  Returns the largest difference
+    from the plain version (every output, the keep mask as 0/1)."""
+    first = k2_call(mode, args)
+    want = k2_call(mode, args, plain=True)
+    check(len(first) == len(want), f"K2 {what}: as many outputs as plain")
+    err = max(max_abs_err(torch, g, w) for g, w in zip(first, want))
+    check(err == 0, f"K2 {what} == plain")
+    for _ in range(K2_REPEATS - 1):
+        check(all(torch.equal(g, f) for g, f in zip(k2_call(mode, args), first)), f"K2 {what}: every run equals the first")
+    return err
+
+
+def k2_sides(torch, dev, gen, kind: str, na: int, nb: int, unique: bool):
+    """Two ascending int64 runs (sorted unique for the fold): random keys
+    from a narrow range, equal keys across tile edges (for the fold the same
+    keys on both sides), one run wholly below the other, or long
+    SENTINEL_KEY tails."""
+    from orion_kmer_tpu_torch.keys import SENTINEL_KEY
+
+    def side(m, lo):
+        if kind == "ties":
+            v = torch.arange(m, device=dev) if unique else torch.full((m,), 7, device=dev)
+        elif kind == "random":
+            v = torch.randint(0, max(3 * (na + nb), 2) if unique else max(m // 3, 2), (m,), device=dev, generator=gen)
+            v = torch.sort(v).values
+            if unique:
+                v = v * (na + nb + 1) + torch.arange(m, device=dev)  # distinct, still ascending
+        else:
+            v = lo + (torch.arange(m, device=dev) * 2 if unique else torch.arange(m, device=dev) // 3)
+            if kind == "sentinel tails" and m:
+                v[m - (1 if unique else 2 * m // 5 + 1):] = SENTINEL_KEY
+        return v.to(torch.int64)
+
+    lo_a = 10 * (nb + 1) if kind == "b below a" else 0
+    lo_b = 10 * (na + 1) if kind == "a below b" else 0
+    return side(na, lo_a), side(nb, lo_b)
+
+
+def k2_edges(torch, dev, gen) -> float:
+    """Every K2 mode against its plain version at lengths around its tile
+    and at (2^20 + 5, 333,333), for every kind of k2_sides, each case
+    K2_REPEATS times byte for byte.  Returns the largest difference."""
+    lengths = [(0, 0), (0, 1), (1, 0), (1, 1)] + [
+        x for t in k2_tiles() for x in ((t - 1, 0), (0, t + 1), (t - 1, t + 1), (t + 1, t - 1), (3 * t, 2 * t + 1))
+    ] + [((1 << 20) + 5, 333_333)]
+    kinds = ("random", "ties", "a below b", "b below a", "sentinel tails")
+    cases, err = 0, 0.0
+    for na, nb in lengths:
+        for kind in kinds:
+            for mode in ("keys", "payload", "fold"):
+                a, b = k2_sides(torch, dev, gen, kind, na, nb, mode == "fold")
+                if mode == "keys":
+                    pa = pb = None
+                elif mode == "payload":
+                    pa, pb = torch.arange(na, device=dev), na + torch.arange(nb, device=dev)
+                else:
+                    pa = torch.randint(1, 1 << 40, (na,), device=dev, generator=gen)
+                    pb = torch.randint(1, 1 << 40, (nb,), device=dev, generator=gen)
+                err = max(err, k2_run(torch, f"{mode}, {na} + {nb}, {kind}", mode, (a, b, pa, pb)))
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"K2 every mode == plain and identical over {K2_REPEATS} runs: {cases} cases, lengths {lengths}, "
+        f"kinds {kinds}")
+    return err
+
+
+K2_FOREST = (  # (log2 of a side, the runs end in SENTINEL_KEY tails, what)
+    (24, False, "forest; a shard's last level"),
+    (21, False, "a shard's first level"),
+    (22, False, "a shard's second level"),
+    (23, False, "a shard's third level"),
+    (25, True, "forest, second level"),
+    (26, True, "forest, third level"),
+    (27, True, "the flush's last merge"),
+)
+
+
+def k2_shapes(torch, dev, gen):
+    """K2's shapes on the main path: (name, mode, (a, b, pa, pb), bytes it
+    must move).  The forest: two sorted runs with many duplicates at every
+    level of a flush's binary counter (K2_FOREST: the single table merges
+    2^24-key batch runs into 2^25, ..., up to 2^27 + 2^27; each of four
+    shards merges runs of its routed keys, ~2^21 a batch, up to ~2^24 +
+    2^24); the single table's runs end in SENTINEL_KEY, a third of each
+    run (windows no read covers and the bucket's padding: 0.5 Gbp of 150
+    bp reads is 400 M windows in 36 runs of 2^24); the fold: a
+    sorted-unique counted table and a flush's table sharing about half of
+    the flush's keys; the join: the DB with its -1 - row tags and sorted
+    queries, half of them DB keys, tagged with their positions."""
+    from orion_kmer_tpu_torch.keys import SENTINEL_KEY
+
+    def randint(lo, hi, m):
+        return torch.randint(lo, hi, (m,), device=dev, generator=gen)
+
+    def run(m, tail):
+        v = torch.sort(randint(-m // 4, m // 4, m)).values
+        if tail:
+            v[m - m // 3:] = SENTINEL_KEY
+        return v
+
+    out = []
+    for e, tail, what in K2_FOREST:
+        m = 1 << e
+        out.append((f"keys, 2^{e} + 2^{e}{', sentinel tails' if tail else ''} ({what})", "keys",
+                    (run(m, tail), run(m, tail), None, None), 2 * m * 16))
+    for scale, what in ((1, "the fold"), (4, "a shard's fold")):
+        na, nb = K2_FOLD[0] // scale, K2_FOLD[1] // scale
+        ta = torch.unique(randint(-(1 << 40), 1 << 40, na))
+        shared = ta[randint(0, ta.shape[0], nb // 2)]
+        tb = torch.unique(torch.cat([shared, randint(-(1 << 40), 1 << 40, nb - nb // 2)]))
+        ca, cb = randint(1, 1000, ta.shape[0]), randint(1, 1000, tb.shape[0])
+        out.append((f"fold, {ta.shape[0]} + {tb.shape[0]} with counts ({what})", "fold", (ta, tb, ca, cb),
+                    (ta.shape[0] + tb.shape[0]) * 33))
+    db = torch.unique(randint(-(1 << 40), 1 << 40, K2_JOIN[0]))
+    nq = K2_JOIN[1]
+    q = torch.sort(torch.cat([db[randint(0, db.shape[0], nq // 2)], randint(-(1 << 40), 1 << 40, nq - nq // 2)])).values
+    tags = (-1 - torch.arange(db.shape[0], device=dev), torch.arange(nq, device=dev))
+    out.append((f"payload, {db.shape[0]} DB keys + 2^24 queries with tags (the join)", "payload", (db, q, *tags),
+                (db.shape[0] + nq) * 32))
+    return out
+
+
+def k2_rows(torch, dev, gen) -> dict:
+    """K2 at each main-path shape: exact against its plain version over
+    K2_REPEATS runs, then its time, the kernel alone, the plain version's,
+    the library's (a stable torch.sort of the concatenated keys), the bound;
+    then the whole combine_sorted_unique at the fold's size.  Prints
+    `K2 rows: {...}` and returns the record of the 2^24 + 2^24 forest merge
+    for the kernels line."""
+    from orion_kmer_tpu_torch.ops import compact, count, merge
+
+    rows = {}
+    err = 0.0
+    shapes = k2_shapes(torch, dev, gen)
+    for what, mode, args, n_bytes in shapes:
+        err = max(err, k2_run(torch, what, mode, args))
+        a, b = args[:2]
+        row = dict(ms=median_ms(torch, lambda: k2_call(mode, args)),
+                   kernel_alone_ms=kernel_ms(torch, lambda: k2_call(mode, args), "merge_kernel"),
+                   plain_ms=median_ms(torch, lambda: k2_call(mode, args, plain=True), calls=5),
+                   library="torch.sort(cat, stable=True)" + (" (keys only)" if mode != "keys" else ""),
+                   library_ms=median_ms(torch, lambda: torch.sort(torch.cat([a, b]), stable=True), calls=5),
+                   bound_ms=bound_ms(n_bytes))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[what] = row
+        log(f"K2 {what}: {row['ms']:.4f} ms (alone {row['kernel_alone_ms']}), plain {row['plain_ms']:.4f}, "
+            f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({100 * row['share_of_bound']:.0f} %)")
+    # the whole fold: K2's fold mode, then K3 over keys and sums, one host sync
+    what, _, args, _ = next(s for s in shapes if s[0].endswith("(the fold)"))
+    keys, cnt = merge.merge_plain(*args)
+    summed, keep = merge.combine_merged_plain(keys, cnt)
+    (wk, wc), _ = compact.compact_plain([keys, summed], keep)
+    got = count.combine_sorted_unique(args[0], args[2], args[1], args[3])
+    err = max(err, max_abs_err(torch, got[0], wk), max_abs_err(torch, got[1], wc))
+    check(err == 0, "combine_sorted_unique at the fold's size == plain")
+    before = (merge.launches, compact.launches)
+    count.combine_sorted_unique(args[0], args[2], args[1], args[3])
+    check((merge.launches, compact.launches) == (before[0] + 1, before[1] + 1),
+          "combine_sorted_unique: one K2 launch, then one K3 launch")
+    rows["combine_sorted_unique, " + what.split(", ", 1)[1]] = dict(
+        ms=median_ms(torch, lambda: count.combine_sorted_unique(args[0], args[2], args[1], args[3]), calls=5))
+    del shapes, keys, cnt, summed, keep, wk, wc, got
+    log(f"K2 rows: {json.dumps(rows)}")
+    first = rows[next(iter(rows))]
+    return dict(ms=first["ms"], plain_ms=first["plain_ms"], library_ms=first["library_ms"], bound_ms=first["bound_ms"],
+                max_abs_err=err)
+
+
 def phase_kernels(np, torch, codec, dev, rng):
     """Each kernel against its plain version on the card; returns, per
     kernel, its record for the JSON line: kernel, plain and library times,
@@ -592,56 +827,13 @@ def phase_kernels(np, torch, codec, dev, rng):
     del keys
     torch.cuda.synchronize()
 
-    # K2: two sorted 2^24-key forest runs with many duplicates (keys only),
-    # then a table-sized key + count merge of unequal lengths
-    def sorted_keys(m, spread):
-        return torch.sort(torch.randint(-spread, spread, (m,), device=dev)).values
-
-    a, b = sorted_keys(1 << 24, 1 << 22), sorted_keys(1 << 24, 1 << 22)
-    gk, gp = merge.merge(a, b)
-    pk, _ = merge.merge_plain(a, b)
-    err = max_abs_err(torch, gk, pk)
-    check(gp is None, "keys-only merge has no payload")
-    t_k = median_ms(torch, lambda: merge.merge(a, b))
-    t_p = median_ms(torch, lambda: merge.merge_plain(a, b))
-    t_l = median_ms(torch, lambda: torch.sort(torch.cat([a, b]), stable=True))
-    t_b = bound_ms((a.numel() + b.numel()) * 16)
-    log(f"K2 merge 2^24 + 2^24 keys: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-        f"library torch.sort(cat, stable) {t_l:.3f} ms, bound {t_b:.4f} ms")
-    rec["K2"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b)
-    ta = torch.unique(sorted_keys(40_000_000, 1 << 40))
-    tb = torch.unique(sorted_keys(9_000_000, 1 << 40))
-    ca = torch.randint(1, 1000, ta.shape, device=dev)
-    cb = torch.randint(1, 1000, tb.shape, device=dev)
-    gk, gp = merge.merge(ta, tb, ca, cb)
-    pk, pp = merge.merge_plain(ta, tb, ca, cb)
-    err = max(err, max_abs_err(torch, gk, pk), max_abs_err(torch, gp, pp))
-    t_k2 = median_ms(torch, lambda: merge.merge(ta, tb, ca, cb))
-    t_p2 = median_ms(torch, lambda: merge.merge_plain(ta, tb, ca, cb))
-    t_l2 = median_ms(torch, lambda: torch.sort(torch.cat([ta, tb]), stable=True))
-    log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts: kernel {t_k2:.3f} ms, plain {t_p2:.3f} ms, "
-        f"library (keys only) {t_l2:.3f} ms, bound {bound_ms((ta.numel() + tb.numel()) * 32):.4f} ms")
-    # the sharded count's shapes: a shard's first forest merge (two
-    # received runs of ~2^22 keys) and its fold of a flush into its table
-    # (a quarter of the single table's)
-    a, b = sorted_keys(1 << 22, 1 << 20), sorted_keys(1 << 22, 1 << 20)
-    err = max(err, max_abs_err(torch, merge.merge(a, b)[0], merge.merge_plain(a, b)[0]))
-    log(f"K2 merge 2^22 + 2^22 keys (a shard's forest): kernel {median_ms(torch, lambda: merge.merge(a, b)):.4f} ms, "
-        f"plain {median_ms(torch, lambda: merge.merge_plain(a, b)):.4f} ms, library torch.sort(cat, stable) "
-        f"{median_ms(torch, lambda: torch.sort(torch.cat([a, b]), stable=True)):.4f} ms, "
-        f"bound {bound_ms((a.numel() + b.numel()) * 16):.4f} ms")
-    ta, tb, ca, cb = ta[: ta.shape[0] // 4], tb[: tb.shape[0] // 4], ca[: ca.shape[0] // 4], cb[: cb.shape[0] // 4]
-    gk, gp = merge.merge(ta, tb, ca, cb)
-    pk, pp = merge.merge_plain(ta, tb, ca, cb)
-    err = max(err, max_abs_err(torch, gk, pk), max_abs_err(torch, gp, pp))
-    log(f"K2 merge {ta.shape[0]} + {tb.shape[0]} keys with counts (a shard's fold): kernel "
-        f"{median_ms(torch, lambda: merge.merge(ta, tb, ca, cb)):.4f} ms, plain "
-        f"{median_ms(torch, lambda: merge.merge_plain(ta, tb, ca, cb)):.4f} ms, library (keys only) "
-        f"{median_ms(torch, lambda: torch.sort(torch.cat([ta, tb]), stable=True)):.4f} ms, "
-        f"bound {bound_ms((ta.numel() + tb.numel()) * 32):.4f} ms")
-    check(err == 0, "K2 agrees with its plain version")
-    rec["K2"]["max_abs_err"] = err
-    del a, b, ta, tb, ca, cb, gk, gp, pk, pp
+    # K2: every mode at edge lengths, 20 runs each byte for byte; then each
+    # shape the main path gives it, timed (k2_rows); then the whole fold
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    err = k2_edges(torch, dev, gen)
+    rec["K2"] = k2_rows(torch, dev, gen)
+    rec["K2"]["max_abs_err"] = max(err, rec["K2"]["max_abs_err"])
     torch.cuda.synchronize()
 
     # K3: every mode against its plain version, each case 20 times and byte
@@ -784,6 +976,8 @@ def kernels_on_card(np, torch, codec, dev, rng):
     a = torch.sort(torch.randint(-(1 << 40), 1 << 40, (n,), device=dev)).values
     b = torch.sort(torch.randint(-(1 << 40), 1 << 40, (n + 77,), device=dev)).values
     err = max(err, max_abs_err(torch, merge.merge(a, b)[0], merge.merge_plain(a, b)[0]))
+    ua, ub = torch.unique(a), torch.unique(b)
+    k2_run(torch, f"fold on {dev}", "fold", (ua, ub, torch.ones_like(ua), 2 * torch.ones_like(ub)))
     keep = torch.rand(n, device=dev) < 0.5
     limit = torch.tensor(n // 3, device=dev)
     for args in (([a], keep), ([a, b[:n]], keep)):
@@ -976,6 +1170,8 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     log(f"launches in the main path: {launches}")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} launched in the main path")
+    for caller in ("forest", "fold"):
+        check(launches["K2 callers"].get(caller, 0) > 0, f"K2 launched by the {caller} in the main path")
     return launches, fq, out, n_reads, n_windows, genome, read_sample
 
 
@@ -986,7 +1182,7 @@ def kernel_modules():
 
 
 def add_modes(dicts) -> dict:
-    """K3's launches by mode, summed over runs."""
+    """K2's launches by caller or K3's by mode, summed over runs."""
     total = {}
     for d in dicts:
         for mode, n in d.items():
@@ -995,17 +1191,22 @@ def add_modes(dicts) -> dict:
 
 
 def zero_counters():
-    """Every kernel's launch count, and K3's by mode, to 0."""
+    """Every kernel's launch count, K2's by caller and K3's by mode, to 0."""
     kernels = kernel_modules()
     for mod in kernels.values():
         mod.launches = 0
+    kernels["K2"].by_caller.clear()
+    kernels["K2"].by_size.clear()
     kernels["K3"].by_mode.clear()
 
 
 def read_counters():
-    """Launches of K1-K4 since zero_counters, and K3's by mode."""
+    """Launches of K1-K4 since zero_counters, K2's by caller (and by
+    caller and length) and K3's by mode."""
     kernels = kernel_modules()
     out = {name: mod.launches for name, mod in kernels.items()}
+    out["K2 callers"] = dict(kernels["K2"].by_caller)
+    out["K2 sizes"] = dict(kernels["K2"].by_size)
     out["K3 modes"] = dict(kernels["K3"].by_mode)
     return out
 
@@ -1099,7 +1300,7 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     runs["compare"] = launches
 
     for what in ("query", "classify", "compare"):
-        check(runs[what]["K2"] > 0, f"K2 launched in {what}")
+        check(runs[what]["K2 callers"].get("join", 0) > 0, f"K2 launched by the join in {what}")
     check(runs["query"]["K1"] > 0, "K1 launched in query")
 
     # K4's own path: no command reaches it, so drive its entry, sort_pairs,
@@ -1659,6 +1860,8 @@ def main() -> int:
         log(f"launches of {name}: {r}")
     total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3")}
     total["K4"] = runs["sort_pairs"]["K4"]
+    log(f"K2 launches by caller, summed as K2 is: {add_modes(r.get('K2 callers', {}) for name, r in runs.items())}")
+    log(f"K2 launches by caller and length: {add_modes(r.get('K2 sizes', {}) for name, r in runs.items())}")
     log(f"K3 launches by mode, summed as K3 is: {add_modes(r.get('K3 modes', {}) for name, r in runs.items())}")
     pkg = "orion_kmer_tpu_torch/csrc"
     kernels = [

@@ -46,7 +46,6 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "okt_extract_blocks": (_I, [_I]),
     "okt_extract": (ctypes.c_int, [_P, _P, _I, _I, _I, _P, _P, _P]),
-    "okt_merge_scratch": (_I, [_I]),
     "okt_merge": (ctypes.c_int, [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P]),
     "okt_compact_workspace": (_I, [_I, _I]),
     "okt_compact": (ctypes.c_int, [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),

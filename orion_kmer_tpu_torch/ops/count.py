@@ -4,9 +4,10 @@ encode.
 The torch counterparts of ``orion_kmer_tpu/ops/count.py``:
 ``sort_canonical_packed`` (extraction through K1, then ``torch.sort``),
 ``rle_sorted`` (``_rle_sorted`` / ``rle_compact``, head compaction
-through K3) and ``combine_sorted_unique`` (run merge through K2, head
-compaction through K3).  Counts are int64 throughout: the JAX (cnt_lo,
-cnt_hi) u32 carry exists only because of TPU limits.
+through K3) and ``combine_sorted_unique`` (K2's fold mode, which merges
+and sums the counts of shared keys, then K3).  Counts are int64
+throughout: the JAX (cnt_lo, cnt_hi) u32 carry exists only because of
+TPU limits.
 
 A raw run is (keys, n_valid): ascending keys whose first n_valid entries
 are real windows and whose tail is SENTINEL_KEY, with n_valid a 0-d
@@ -19,7 +20,7 @@ import torch
 
 from .compact import compact, compact_positions
 from .extract import extract_keys
-from .merge import merge
+from .merge import merge, merge_combine
 
 
 def _exact(t, m: int):
@@ -37,7 +38,7 @@ def sort_canonical_packed(lanes, invalid_words, k: int, n_positions: int):
 
 def merge_runs(a, b):
     """Merge two raw runs into one (duplicates ride along)."""
-    keys, _ = merge(a[0], b[0])
+    keys, _ = merge(a[0], b[0], caller="forest")
     return keys, a[1] + b[1]
 
 
@@ -61,14 +62,9 @@ def combine_sorted_unique(a_keys, a_cnt, b_keys, b_cnt):
     """Merge two sorted-unique counted tables, summing the counts of keys
     present in both.  Returns (keys, counts) of exactly the union's size
     (one host sync)."""
-    keys, cnt = merge(a_keys, b_keys, a_cnt, b_cnt)
+    keys, summed, keep = merge_combine(a_keys, b_keys, a_cnt, b_cnt)
     if keys.shape[0] == 0:
-        return keys, cnt
-    # each key appears at most twice (both inputs are unique), a first
-    eq_next = keys[1:] == keys[:-1]
-    summed = cnt.clone()
-    summed[:-1] += torch.where(eq_next, cnt[1:], 0)
-    keep = torch.cat([eq_next.new_ones(1), ~eq_next])
+        return keys, summed
     (ukeys, ucnt), n_u = compact([keys, summed], keep)
     m = int(n_u)
     return _exact(ukeys, m), _exact(ucnt, m)

@@ -35,7 +35,7 @@ def _merged(db_keys, q_sorted, q_tags):
     carry the tag -1 - row, and ``hit`` marks the query rows whose key is
     in the DB."""
     db_tags = -1 - torch.arange(db_keys.shape[0], device=db_keys.device)
-    keys, tags = merge(db_keys, q_sorted, db_tags, q_tags)
+    keys, tags = merge(db_keys, q_sorted, db_tags, q_tags, caller="join")
     is_db = tags < 0
     idx = torch.arange(keys.shape[0], device=keys.device)
     is_head = torch.ones_like(is_db)
@@ -105,5 +105,5 @@ def intersection_size(a, b):
     """|A intersect B| of two sorted-unique key sets, as a 0-d int64
     tensor: each key occurs at most once per side, so a shared key is an
     equal adjacent pair of the merge."""
-    keys, _ = merge(a, b)
+    keys, _ = merge(a, b, caller="join")
     return (keys[1:] == keys[:-1]).sum()

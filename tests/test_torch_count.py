@@ -6,15 +6,18 @@ import gzip
 
 import numpy as np
 import pytest
+import torch
 
 from orion_kmer_tpu import codec
 from orion_kmer_tpu import engine as jax_engine
 from orion_kmer_tpu.cli import main as jax_main
 from orion_kmer_tpu_torch import engine
 from orion_kmer_tpu_torch.cli import main as port_main
-from orion_kmer_tpu_torch.keys import table_from_jax
+from orion_kmer_tpu_torch.keys import keys_from_u64, table_from_jax, u64_from_keys
+from orion_kmer_tpu_torch.ops import count as port_count
 
 from .test_torch_ingest import jax_native_loaded  # noqa: F401  (a fixture)
+from .test_torch_merge import FOLD_SPLITS, _counted_tables, jax_combine
 from .util import SAMPLE1_FASTA, SAMPLE2_FASTQ, TEST_INPUT1_FASTA, TEST_INPUT2_FASTQ, write_file
 
 # the JAX CLI and engine read through the JAX package's native parser
@@ -224,3 +227,17 @@ def test_unique_from_file_matches_jax(tmp_path):
     np.testing.assert_array_equal(
         engine.unique_from_file(f, 25, "cpu"), jax_engine.unique_from_file(f, 25)
     )
+
+
+@pytest.mark.parametrize("na,nb", FOLD_SPLITS)
+def test_combine_sorted_unique_matches_jax(na, nb):
+    """The fold (K2's fold mode, then K3 over the keys and the sums) equals
+    the JAX package's combine_sorted_unique on seeded tables that share
+    keys, exactly, at exactly the union's length."""
+    a, ca, b, cb = _counted_tables(3 * na + nb, na, nb)
+    keys, counts = port_count.combine_sorted_unique(
+        keys_from_u64(a), torch.from_numpy(ca), keys_from_u64(b), torch.from_numpy(cb)
+    )
+    want_keys, want_counts = jax_combine(a, ca, b, cb)
+    np.testing.assert_array_equal(u64_from_keys(keys), want_keys)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)

@@ -42,7 +42,7 @@ class Recorder:
     def __getattr__(self, name):
         if not name.startswith("okt_"):
             raise AttributeError(name)
-        sizes = {"okt_extract_blocks": 3, "okt_compact_workspace": 7, "okt_merge_scratch": 5}
+        sizes = {"okt_extract_blocks": 3, "okt_compact_workspace": 7}
 
         def entry(*args):
             self.calls.append((name, self.guarded))
@@ -69,6 +69,8 @@ LAUNCHES = {
     "K1 extract": (extract, lambda: extract.extract_keys(_meta(8, torch.int32), _meta(4, torch.int32), 21, 100),
                    {"okt_extract_blocks", "okt_extract"}),
     "K2 merge": (merge, lambda: merge.merge(_meta(8), _meta(5), _meta(8), _meta(5)), {"okt_merge"}),
+    "K2 merge keys": (merge, lambda: merge.merge(_meta(8), _meta(5)), {"okt_merge"}),
+    "K2 merge fold": (merge, lambda: merge.merge_combine(_meta(8), _meta(5), _meta(8), _meta(5)), {"okt_merge"}),
     "K3 compact": (compact, lambda: compact.compact([_meta(9), _meta(9)], _meta(9, torch.bool)),
                    {"okt_compact"}),
     "K3 compact one plane": (compact, lambda: compact.compact([_meta(9)], _meta(9, torch.bool)), {"okt_compact"}),
@@ -89,6 +91,23 @@ def test_wrapper_launches_under_its_operands_device(recorder, monkeypatch, name)
     assert all(dev == torch.device("meta") for _, dev in device_bound), recorder.calls
     assert module.launches == 1
     assert recorder.guarded is None
+
+
+def test_k2_counts_its_launches_by_caller(recorder, monkeypatch):
+    """Every K2 launch counts once in ``launches``, once under its caller
+    (the forest, the fold (``merge_combine``) or a join) and once under
+    its caller and merged length; an empty merge launches nothing."""
+    monkeypatch.setattr(merge, "launches", 0)
+    monkeypatch.setattr(merge, "by_caller", {})
+    monkeypatch.setattr(merge, "by_size", {})
+    merge.merge(_meta(8), _meta(5), caller="forest")
+    merge.merge(_meta(16), _meta(16), caller="forest")
+    merge.merge(_meta(8), _meta(5), _meta(8), _meta(5), caller="join")
+    merge.merge_combine(_meta(8), _meta(5), _meta(8), _meta(5))
+    merge.merge_combine(_meta(0), _meta(0), _meta(0), _meta(0))
+    assert merge.launches == 4
+    assert merge.by_caller == {"forest": 2, "join": 1, "fold": 1}
+    assert merge.by_size == {"forest ~2^4": 1, "forest ~2^5": 1, "join ~2^4": 1, "fold ~2^4": 1}
 
 
 def test_on_device_is_the_tensors_cuda_device(monkeypatch):

@@ -6,6 +6,9 @@ This file imports no jax, so the card tests run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,7 @@ def test_cpu_path_never_loads_the_kernels(monkeypatch):
     monkeypatch.setattr(_kernels, "lib", no_kernels)
     x = torch.arange(10, dtype=torch.int64)
     merge.merge(x, x)
+    merge.merge_combine(x, x, x, x)
     compact.compact([x], x > 3)
     sort.sort_pairs(x)
     lanes, inv = _wire(np.random.default_rng(0), 100, 128)
@@ -41,6 +45,8 @@ def test_non_cpu_non_cuda_tensors_raise():
     x = torch.empty(8, dtype=torch.int64, device=device)
     with pytest.raises(ValueError):
         merge.merge(x, x)
+    with pytest.raises(ValueError):
+        merge.merge_combine(x, x, x, x)
     with pytest.raises(ValueError):
         compact.compact([x], torch.empty(8, dtype=torch.bool, device=device))
     with pytest.raises(ValueError):
@@ -109,6 +115,89 @@ def test_merge_kernel_matches_plain(cuda, na, nb):
     assert torch.equal(ek, gk.cpu()) and torch.equal(ep, gp.cpu())
     gk2, none = merge.merge(a.to(cuda), b.to(cuda))
     assert none is None and torch.equal(ek, gk2.cpu())
+
+
+def _k2_tiles() -> tuple:
+    """Outputs a block of csrc/merge.cu merges, keys only and with a
+    payload: kThreads * kItemsKeys and kThreads * kItemsPayload."""
+    src = (Path(merge.__file__).resolve().parent.parent / "csrc" / "merge.cu").read_text()
+    threads, keys, payload = (
+        int(re.search(rf"constexpr int {c} = (\d+);", src).group(1)) for c in ("kThreads", "kItemsKeys", "kItemsPayload")
+    )
+    return threads * keys, threads * payload
+
+
+# empty, one key, a tile less and more one on either side, many tiles
+K2_LENGTHS = [(0, 0), (0, 1), (1, 0), (1, 1)] + [
+    length for t in _k2_tiles() for length in ((t - 1, 0), (0, t + 1), (t - 1, t + 1), (t + 1, t - 1))
+] + [((1 << 20) + 5, 333_333)]
+K2_KINDS = ["random", "ties across tile edges", "a below b", "b below a", "sentinel tails"]
+K2_REPEATS = 20
+
+
+def _k2_runs(kind, na, nb, unique, rng):
+    """Two ascending int64 runs of na and nb keys (each sorted unique when
+    ``unique``, as the fold takes them): random keys from a narrow range,
+    runs of equal keys longer than a tile (for the fold: the same keys on
+    both sides, a pair at every position), one run wholly below the other,
+    or long SENTINEL_KEY tails."""
+
+    def side(m, lo):
+        if kind == "ties across tile edges":
+            v = torch.arange(m) if unique else torch.full((m,), 7)
+        elif kind == "random" and unique:
+            v = torch.from_numpy(np.sort(rng.choice(3 * (na + nb) + 3, m, replace=False)))
+        elif kind == "random":
+            v = torch.sort(torch.from_numpy(rng.integers(0, max(m // 3, 2), m))).values
+        else:
+            v = lo + (torch.arange(m) * 2 if unique else torch.arange(m) // 3)
+            if kind == "sentinel tails" and m:
+                v[m - (1 if unique else 2 * m // 5 + 1) :] = SENTINEL_KEY
+        return v.to(torch.int64)
+
+    lo_a = 10 * (nb + 1) if kind == "b below a" else 0
+    lo_b = 10 * (na + 1) if kind == "a below b" else 0
+    return side(na, lo_a), side(nb, lo_b)
+
+
+def _k2_byte_identical(run, want):
+    """run() equals want and K2_REPEATS - 1 more runs equal the first."""
+    first = run()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(first, want))
+    for _ in range(K2_REPEATS - 1):
+        assert all(torch.equal(g, f) for g, f in zip(run(), first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb", K2_LENGTHS)
+@pytest.mark.parametrize("kind", K2_KINDS)
+@pytest.mark.parametrize("mode", ["keys", "payload"])
+def test_merge_kernel_modes_match_plain(cuda, na, nb, kind, mode):
+    rng = np.random.default_rng(na * 3 + nb)
+    a, b = _k2_runs(kind, na, nb, False, rng)
+    pa, pb = (torch.arange(na), torch.arange(nb) + na) if mode == "payload" else (None, None)
+    keys, payload = merge.merge_plain(a, b, pa, pb)
+    on = [None if t is None else t.to(cuda) for t in (a, b, pa, pb)]
+    before = merge.launches
+    if mode == "payload":
+        _k2_byte_identical(lambda: merge.merge(*on), (keys, payload))
+    else:
+        _k2_byte_identical(lambda: merge.merge(*on[:2])[:1], (keys,))
+    assert merge.launches == before + (K2_REPEATS if na + nb else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb", K2_LENGTHS)
+@pytest.mark.parametrize("kind", K2_KINDS)
+def test_merge_kernel_fold_matches_plain(cuda, na, nb, kind):
+    rng = np.random.default_rng(na * 5 + nb)
+    a, b = _k2_runs(kind, na, nb, True, rng)
+    ca = torch.from_numpy(rng.integers(1, 1 << 40, na))
+    cb = torch.from_numpy(rng.integers(1, 1 << 40, nb))
+    keys, cnt = merge.merge_plain(a, b, ca, cb)
+    want = (keys, *merge.combine_merged_plain(keys, cnt))
+    on = [t.to(cuda) for t in (a, b, ca, cb)]
+    _k2_byte_identical(lambda: merge.merge_combine(*on), want)
 
 
 @pytest.mark.cuda

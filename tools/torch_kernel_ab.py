@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K3 and K4 of two checkouts of the port, timed the same way on one card.
+"""K1, K2, K3 and K4 of two checkouts of the port, timed the same way on one card.
 
     python3 tools/torch_kernel_ab.py [--root DIR]
 
@@ -21,7 +21,13 @@ and density 0.97, and the route of a 2^22-key block four and eight ways
 (``ops.compact.partition``; before it, ``sharded.route_keys``); then
 ``rle_sorted`` of that 2^28-key run, the flush, against
 ``torch.unique_consecutive``, with its peak device memory above its
-inputs.  Every K3 shape is held against its plain version first.  To compare
+inputs.  Every K3 shape is held against its plain version first.  K2 at
+``chip_smoke.k2_shapes``: the forest's keys-only merges at every level of a
+flush (``chip_smoke.K2_FOREST``, 2^22 to 2^27 keys a side), the fold and a shard's fold (the merge with counts,
+then the sums and keep flags: K2's fold mode, or, before it, the merge and
+the torch chain ``combine_sorted_unique`` ran), the payload merge at the
+fold's size, the whole ``combine_sorted_unique``, and the join's payload
+merge.  To compare
 a commit with its parent, unpack the parent with ``git archive`` into a
 directory that .gitignore lists and run parent, change, change, parent in
 one call on the card.  Prints one JSON line.
@@ -38,6 +44,51 @@ HERE = Path(__file__).resolve().parent.parent
 # K3's kernels, as torch.profiler names them: the one-pass kernel, and the
 # two of the version before it
 K3_KERNELS = ("compact_kernel", "namespace)::count_kernel", "namespace)::scatter_kernel")
+# K2's kernels: the one-launch kernel, and the two of the version before it
+K2_KERNELS = ("merge_kernel", "merge_tile_kernel", "namespace)::partition_kernel")
+
+
+def k2_rows(chip_smoke, torch, dev):
+    """K2's shapes as its callers reach them: {shape: {ms, kernel_ms}}."""
+    from orion_kmer_tpu_torch.ops import count, merge
+
+    def chain(keys, cnt):  # the fold's epilogue as torch ops
+        eq_next = keys[1:] == keys[:-1]
+        summed = cnt.clone()
+        summed[:-1] += torch.where(eq_next, cnt[1:], 0)
+        return keys, summed, torch.cat([eq_next.new_ones(1), ~eq_next])
+
+    def fold(a, b, ca, cb):
+        if hasattr(merge, "merge_combine"):
+            return merge.merge_combine(a, b, ca, cb)
+        return chain(*merge.merge(a, b, ca, cb))
+
+    def timed(fn, want):
+        got = fn()
+        chip_smoke.check(all(torch.equal(g, w) for g, w in zip(got, want)), "K2 == plain")
+        alone = [chip_smoke.kernel_ms(torch, fn, name) for name in K2_KERNELS]
+        return {"ms": chip_smoke.median_ms(torch, fn), "kernel_ms": sum(t for t in alone if t is not None)}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    for what, mode, (a, b, pa, pb), _ in chip_smoke.k2_shapes(torch, dev, gen):
+        if mode == "keys":
+            out[f"K2 {what}"] = timed(lambda: merge.merge(a, b)[:1], merge.merge_plain(a, b)[:1])
+        elif mode == "payload":
+            out[f"K2 {what}"] = timed(lambda: merge.merge(a, b, pa, pb), merge.merge_plain(a, b, pa, pb))
+        else:
+            want = chain(*merge.merge_plain(a, b, pa, pb))
+            out[f"K2 {what}"] = timed(lambda: fold(a, b, pa, pb), want)
+            out[f"K2 payload merge, {what.split(', ', 1)[1]}"] = timed(
+                lambda: merge.merge(a, b, pa, pb), merge.merge_plain(a, b, pa, pb))
+            keys, summed, keep = want
+            whole = (keys[keep], summed[keep])
+            out[f"combine_sorted_unique, {what.split(', ', 1)[1]}"] = {"ms": chip_smoke.median_ms(
+                torch, lambda: count.combine_sorted_unique(a, pa, b, pb), calls=5)}
+            chip_smoke.check(all(torch.equal(g, w) for g, w in zip(count.combine_sorted_unique(a, pa, b, pb), whole)),
+                             "combine_sorted_unique == plain")
+    return out
 
 
 def k3_rows(chip_smoke, torch, dev):
@@ -185,6 +236,8 @@ def main() -> int:
                           "kernel_ms": chip_smoke.kernel_ms(torch, fn, "sort_kernel"),
                           "torch.sort ms": chip_smoke.median_ms(torch, lambda: torch.sort(keys))}
     del L, I, got, exp
+    out.update(k2_rows(chip_smoke, torch, dev))
+    torch.cuda.empty_cache()
     out.update(k3_rows(chip_smoke, torch, dev))
     print(json.dumps(out))
     return 0
