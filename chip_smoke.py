@@ -44,9 +44,15 @@ Phases, in order; any failure raises and exits non-zero:
   5. realistic run: `count -k 31 -m 2 --histogram` over a synthetic
      E. coli-like FASTQ (a 4.64 Mbp genome, 150 bp reads, 0.2 %
      substitutions, a few N runs; --gbp of sequence), in process, with the
-     kernel launch counters reset just before it; checks the histogram
-     mass against the valid windows, ascending output keys and canonical
-     output k-mers;
+     kernel launch counters reset just before it; its TSV and histogram
+     byte-equal to the numpy oracle (oracle_reads_counts).  Beside it the
+     host stage: the host's core counts, the parse's positions/s at 1, 2,
+     4, 8 and 16 parser threads and at the default -t, the warm
+     engine.count_file wall at -t 1 and at the default (equal results),
+     the device busy share of the default's run (torch.profiler), and the
+     CLI `count` in a fresh process at -t 1 and -t 0 with its wall and
+     peak RSS (sampled every 10 ms), both outputs byte-equal to the
+     oracle;
   6. realistic joins, in process, counters reset before each command:
      `build -k 31` of three references (the phase-5 genome, a copy with
      1 % substitutions, an unrelated 5 Mbp genome), `query -c 10` and
@@ -220,6 +226,60 @@ def sorted_unique(np, values):
     """np.unique by a sort (numpy 2.3.5 hashes, many times slower)."""
     a = np.sort(values)
     return a[np.concatenate([[True], a[1:] != a[:-1]])] if a.shape[0] else a
+
+
+def _merge_counted(np, a, b):
+    """Two sorted-unique (vals, counts) runs as one, counts of shared
+    values summed: a stable argsort of the two runs side by side."""
+    v = np.concatenate([a[0], b[0]])
+    c = np.concatenate([a[1], b[1]])
+    order = np.argsort(v, kind="stable")
+    v, c = v[order], c[order]
+    heads = np.flatnonzero(np.concatenate([[True], v[1:] != v[:-1]]))
+    return v[heads], np.add.reduceat(c, heads) if heads.shape[0] else c
+
+
+def oracle_reads_counts(np, codec, path: Path, k: int = 31, read_len: int = 150, workers: int = 8):
+    """Exact canonical k-mer counts of a write_reads_fastq file, with numpy
+    alone: its rows have one width, so each block of reads is a matrix
+    whose windows are read column by column (codec.canonical_u64 for the
+    canonical value), sorted and run-length encoded on a thread (numpy
+    releases the GIL), and the runs merged pairwise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    head_w = 12
+    row_w = head_w + read_len + 3 + read_len + 1
+    rows = np.memmap(path, np.uint8, mode="r").reshape(-1, row_w)
+    lut = np.full(256, 255, np.uint8)
+    lut[np.frombuffer(BASES, np.uint8)] = np.arange(4, dtype=np.uint8)
+    nwin = read_len - k + 1
+
+    def block(lo_hi):
+        seq = lut[np.asarray(rows[lo_hi[0] : lo_hi[1], head_w : head_w + read_len])]
+        c64 = np.where(seq > 3, 0, seq).astype(np.uint64)
+        vals = np.zeros((seq.shape[0], nwin), np.uint64)
+        for j in range(k):
+            vals = (vals << np.uint64(2)) | c64[:, j : j + nwin]
+        bad = np.concatenate([np.zeros((seq.shape[0], 1), np.int64), np.cumsum(seq > 3, axis=1)], axis=1)
+        keys = np.sort(codec.canonical_u64(vals[(bad[:, k:] - bad[:, :-k]) == 0], k))
+        heads = np.flatnonzero(np.concatenate([[True], keys[1:] != keys[:-1]]))
+        return keys[heads], np.diff(np.append(heads, keys.shape[0])).astype(np.int64)
+
+    n = rows.shape[0]
+    step = -(-n // (4 * workers))
+    with ThreadPoolExecutor(workers) as pool:
+        runs = list(pool.map(block, [(lo, min(n, lo + step)) for lo in range(0, n, step)]))
+        while len(runs) > 1:
+            pairs = [(runs[i], runs[i + 1]) for i in range(0, len(runs) - 1, 2)]
+            merged = list(pool.map(lambda ab: _merge_counted(np, *ab), pairs))
+            runs = merged + ([runs[-1]] if len(runs) % 2 else [])
+    return runs[0]
+
+
+def histogram_bytes(np, counts) -> bytes:
+    """`MULTIPLICITY\tDISTINCT\n` lines over every counted k-mer."""
+    m, f = np.unique(counts, return_counts=True)
+    return "".join(f"{a}\t{b}\n" for a, b in zip(m.tolist(), f.tolist())).encode()
 
 
 def window_hits(np, codec, reads, k, db):
@@ -1136,16 +1196,117 @@ def phase_exact(np, codec, work: Path, rng):
     return oracle_tsv[21]
 
 
+def parse_rates(fq: Path, thread_counts, k: int = 31) -> dict:
+    """Positions/s of the streaming native parse alone (``host.native_chunks``:
+    read, parse on T parser threads, check and order the pieces) at each
+    thread count: {T: {positions, s, M positions/s, wrong guesses, peak
+    pieces}}."""
+    from orion_kmer_tpu_torch import host
+
+    rates = {}
+    for t in thread_counts:
+        stats = host.ParseStats()
+        t0 = time.monotonic()
+        positions = sum(p.codes.shape[0] for p in host.native_chunks(fq, k, threads=t, stats=stats))
+        wall = time.monotonic() - t0
+        rates[t] = {"positions": positions, "s": round(wall, 4), "M_per_s": round(positions / wall / 1e6, 3),
+                    "misses": stats.misses, "peak_pieces": stats.peak if t > 1 else 1}
+    return rates
+
+
+# the port's CLI, with the process's resident set read every 10 ms from
+# /proc/self/statm (a fork's rusage would count the parent's pages too,
+# and some kernels give no VmHWM); its peak in bytes goes to argv[1]
+_CLI_PEAK = (
+    "import os, sys, threading, time\n"
+    "from orion_kmer_tpu_torch.cli import main\n"
+    "page, peak, done = os.sysconf('SC_PAGE_SIZE'), [0], threading.Event()\n"
+    "def sample():\n"
+    "    while not done.is_set():\n"
+    "        try:\n"
+    "            with open('/proc/self/statm') as f:\n"
+    "                peak[0] = max(peak[0], int(f.read().split()[1]) * page)\n"
+    "        except OSError:\n"
+    "            return\n"
+    "        time.sleep(0.01)\n"
+    "t = threading.Thread(target=sample, daemon=True)\n"
+    "t.start()\n"
+    "rc = main(sys.argv[2:])\n"
+    "done.set()\n"
+    "t.join()\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    f.write(str(peak[0]))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def cli_subprocess(argv, log_path: Path):
+    """The port's CLI in a fresh process: (wall s with process start, peak
+    RSS bytes of that process, sampled every 10 ms)."""
+    peak_path = log_path.with_suffix(".peak")
+    t0 = time.monotonic()
+    with open(log_path, "wb") as err:
+        rc = subprocess.run([sys.executable, "-c", _CLI_PEAK, str(peak_path), *map(str, argv)],
+                            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err).returncode
+    wall = time.monotonic() - t0
+    check(rc == 0, f"{argv}: exit code ({log_path.read_text()[-2000:]})")
+    return wall, int(peak_path.read_text()) or None  # None: /proc/self/statm could not be read
+
+
 def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
-    from orion_kmer_tpu_torch import cli
+    """Phase 5: the main path, `count -k 31 -m 2 --histogram` of the
+    E. coli-like reads, its TSV and histogram byte-equal to the numpy
+    oracle; and the host stage beside it: the parse's positions/s at 1 to
+    16 parser threads, the warm ``engine.count_file`` and the CLI's wall
+    (a fresh process, with its peak RSS) at -t 1 and at the default, the
+    device busy share at the default, every output equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orion_kmer_tpu_torch import cli, engine, host
 
     fq = work / "reads.fastq"
     t0 = time.monotonic()
     n_reads, n_windows, genome, read_sample = write_reads_fastq(np, fq, rng, gbp)
     log(f"realistic run: {n_reads} reads x 150 bp ({fq.stat().st_size} bytes), "
         f"{n_windows} valid 31-mer windows, generated in {time.monotonic() - t0:.1f} s")
-    out, hist = work / "reads.tsv", work / "reads.hist"
+    t0 = time.monotonic()
+    ov, oc = oracle_reads_counts(np, codec, fq)
+    check(int(oc.sum()) == n_windows, "oracle windows == valid windows")
+    want_tsv = render_tsv(np, ov[oc >= 2], oc[oc >= 2], 31)
+    want_hist = histogram_bytes(np, oc)
+    log(f"oracle: {ov.shape[0]} distinct 31-mers in {time.monotonic() - t0:.1f} s")
 
+    cores = {"os.cpu_count": os.cpu_count(), "sched_getaffinity": len(os.sched_getaffinity(0))}
+    os.environ["ORION_KMER_THREADS"] = str(os.cpu_count())  # what the CLI's default -t 0 exports
+    default_t = host.parse_threads()
+    rates = parse_rates(fq, sorted({1, 2, 4, 8, 16, default_t}))
+    log(f"host cores: {cores}; parse threads at the default -t: {default_t} "
+        f"(MAX_PARSE_THREADS {host.MAX_PARSE_THREADS}, chunk {host.CHUNK_BYTES} bytes)")
+    log(f"parse positions/s by parser threads: {json.dumps(rates)}")
+
+    warm = {}
+    results = {}
+    for t in (1, os.cpu_count()):
+        os.environ["ORION_KMER_THREADS"] = str(t)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        results[t] = engine.count_file(fq, 31, dev)
+        torch.cuda.synchronize()
+        warm[t] = time.monotonic() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(results[1], results[os.cpu_count()])),
+          "count_file at -t 1 == at the default")
+    check(np.array_equal(results[1][0], ov) and np.array_equal(results[1][1], oc), "count_file == oracle")
+    del results
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.count_file(fq, 31, dev)
+        torch.cuda.synchronize()
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    busy = device_s / warm[os.cpu_count()]
+    log(f"warm engine.count_file: -t 1 {warm[1]:.3f} s, default (-t {os.cpu_count()}) "
+        f"{warm[os.cpu_count()]:.3f} s; device time {device_s:.3f} s, busy share {100 * busy:.1f} % of the "
+        f"default's wall; card: {gpu_name_and_limit()}")
+
+    out, hist = work / "reads.tsv", work / "reads.hist"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
@@ -1156,22 +1317,37 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     launches = read_counters()
     check(rc == 0, "count exit code")
     peak = torch.cuda.max_memory_allocated(dev)
-
+    check(out.read_bytes() == want_tsv, "count TSV == oracle bytes")
+    check(hist.read_bytes() == want_hist, "count histogram == oracle bytes")
     h = np.loadtxt(hist, dtype=np.int64, ndmin=2)
     check(int((h[:, 0] * h[:, 1]).sum()) == n_windows, "histogram mass == valid windows")
-    vals = parse_tsv(np, codec, out.read_bytes(), 31)[0]
-    check(vals.shape[0] == int(h[h[:, 0] >= 2, 1].sum()), "TSV lines == k-mers with count >= 2")
-    check(bool((vals[1:] > vals[:-1]).all()), "output keys strictly ascending")
-    sample = vals[rng.choice(vals.shape[0], min(100_000, vals.shape[0]), replace=False)]
-    check(bool((codec.canonical_u64(sample, 31) == sample).all()), "sampled k-mers are canonical")
     log(f"count -k 31 -m 2: wall {wall:.3f} s, {n_windows / wall / 1e6:.3f} M k-mers/s, "
-        f"{int(h[:, 1].sum())} distinct, {vals.shape[0]} with count >= 2, "
+        f"{int(h[:, 1].sum())} distinct, {int(h[h[:, 0] >= 2, 1].sum())} with count >= 2, "
         f"peak device memory {peak / 2**30:.3f} GiB; card: {gpu_name_and_limit()}")
     log(f"launches in the main path: {launches}")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} launched in the main path")
     for caller in ("forest", "fold"):
         check(launches["K2 callers"].get(caller, 0) > 0, f"K2 launched by the {caller} in the main path")
+
+    fresh = {}
+    for t in (1, 0):
+        o, hh = work / f"cli_t{t}.tsv", work / f"cli_t{t}.hist"
+        fresh[t] = cli_subprocess(["-t", t, "count", "-k", 31, "-m", 2, "--histogram", hh, "-i", fq, "-o", o],
+                                  work / f"cli_t{t}.log")
+        check(o.read_bytes() == want_tsv and hh.read_bytes() == want_hist,
+              f"CLI count at -t {t}: TSV and histogram == oracle bytes")
+        o.unlink()
+    rss = {t: "not measured" if fresh[t][1] is None else f"{fresh[t][1] / 2**30:.3f} GiB" for t in fresh}
+    log(f"CLI count in a fresh process: -t 1 {fresh[1][0]:.3f} s, peak RSS {rss[1]}; "
+        f"-t 0 {fresh[0][0]:.3f} s, peak RSS {rss[0]} (sampled every 10 ms)")
+    log("ingest: " + json.dumps({
+        "card": gpu_name_and_limit(), "cores": cores, "default_parse_threads": default_t,
+        "parse": rates, "warm_count_file_s": {"t1": warm[1], "default": warm[os.cpu_count()]},
+        "cli_fresh_s": {"t1": fresh[1][0], "t0": fresh[0][0]},
+        "cli_peak_rss_bytes": {"t1": fresh[1][1], "t0": fresh[0][1]},
+        "in_process_cli_s": wall, "device_s": device_s, "busy_share": busy,
+    }))
     return launches, fq, out, n_reads, n_windows, genome, read_sample
 
 

@@ -38,7 +38,8 @@ from .host import (
     default_batch,
     iter_packed_batches,
     pack_for_transfer,
-    stream_file_batches,
+    parse_threads,
+    stream_file_codes,
     stream_native_chunks,
 )
 from .ingest import native
@@ -182,15 +183,85 @@ class DeviceCountTable:
         scratch.result()
 
 
+class PinnedRing:
+    """A few pinned host buffers that wire batches are packed straight
+    into and copied from without blocking; a buffer is packed again only
+    once the copy that last read it has completed (its CUDA event).  A
+    batch is packed in ``parts`` slices of whole wire words at once (the
+    parser threads, -t), on threads of the ring's own: the native packer
+    releases the GIL."""
+
+    SLOTS = 3
+
+    def __init__(self, device: torch.device, parts: int = 1):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.device = device
+        self.parts = parts
+        self._slots: list = [None] * self.SLOTS
+        self._next = 0
+        self._pool = ThreadPoolExecutor(parts, thread_name_prefix="okt-pack") if parts > 1 else None
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+    def _pack(self, codes: np.ndarray, size: int, lanes: np.ndarray, inv: np.ndarray) -> None:
+        if self._pool is None:
+            pack_for_transfer(codes, size, out=(lanes, inv))
+            return
+        # slice edges on multiples of 32 positions: one invalid word, two lanes
+        step = -(-size // (32 * self.parts)) * 32
+        parts = [
+            self._pool.submit(
+                pack_for_transfer, codes[lo : lo + step], min(step, size - lo),
+                (lanes[lo // 16 : (lo + step) // 16], inv[lo // 32 : (lo + step) // 32]),
+            )
+            for lo in range(0, size, step)
+        ]
+        for f in parts:
+            f.result()
+
+    def stage(self, codes: np.ndarray, size: int):
+        """Pack ``codes`` at wire size ``size`` into the next buffer and
+        start its copy to the device: (lanes, invalid words) there."""
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        slot = self._slots[i]
+        if slot is not None:
+            slot[2].synchronize()
+        if slot is None or slot[0].shape[0] < size // 16:
+            slot = self._slots[i] = (
+                torch.empty(size // 16, dtype=torch.int32, pin_memory=True),
+                torch.empty(size // 32, dtype=torch.int32, pin_memory=True),
+                torch.cuda.Event(),
+            )
+        lanes, inv, done = slot[0][: size // 16], slot[1][: size // 32], slot[2]
+        self._pack(codes, size, lanes.numpy().view(np.uint32), inv.numpy().view(np.uint32))
+        staged = lanes.to(self.device, non_blocking=True), inv.to(self.device, non_blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return staged
+
+
 def staged_batches(path, k: int, normalize: bool, batch: int, device):
     """Parse, wire-pack and stage batches to the device; run on the
     prefetch thread, so the host-to-device copy is enqueued before the
-    consumer needs the batch."""
-    for pb in stream_file_batches(path, k, normalize=normalize, batch_positions=batch):
-        n = pb.codes.shape[0]
-        size = _bucket(n)
-        lanes, inv_words = pack_for_transfer(pb.codes, size)
-        yield to_device(lanes, device), to_device(inv_words, device), size, n
+    consumer needs the batch.  On CUDA the batches are packed into a
+    ``PinnedRing``; on the CPU the tensors are views of the packed
+    arrays."""
+    ring = PinnedRing(device, parse_threads()) if device.type == "cuda" else None
+    try:
+        for codes in stream_file_codes(path, k, normalize, batch):
+            n = codes.shape[0]
+            size = _bucket(n)
+            if ring is None:
+                lanes, inv_words = pack_for_transfer(codes, size)
+                yield to_device(lanes, device), to_device(inv_words, device), size, n
+            else:
+                yield *ring.stage(codes, size), size, n
+    finally:
+        if ring is not None:
+            ring.close()
 
 
 def _make_count_table(k: int, device):
@@ -239,11 +310,11 @@ def count_file(
 
     else:
         # the sharded table cuts, packs and stages each batch itself
-        batches = stream_file_batches(path, k, normalize=normalize, batch_positions=batch)
+        batches = stream_file_codes(path, k, normalize, batch)
 
-        def fold(pb) -> int:
-            table.update(pb.codes)
-            return pb.codes.shape[0]
+        def fold(codes) -> int:
+            table.update(codes)
+            return codes.shape[0]
 
     positions = 0
     t0 = time.monotonic()

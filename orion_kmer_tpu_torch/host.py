@@ -13,7 +13,10 @@ a (k-1)-base halo, so every window is produced exactly once.
 
 from __future__ import annotations
 
+import io
 import os
+import queue
+import threading
 from typing import Iterable, Iterator, NamedTuple
 
 import numpy as np
@@ -50,17 +53,18 @@ def _pad(arr: np.ndarray, size: int, fill) -> np.ndarray:
     return out
 
 
-def pack_for_transfer(codes: np.ndarray, size: int):
+def pack_for_transfer(codes: np.ndarray, size: int, out=None):
     """Host-side wire packing: codes u8[n] (255 = invalid) padded to
     ``size`` (multiple of 32) -> (lanes u32[size/16], invalid u32[size/32]).
 
     Base j of lane w sits at bits 2j..2j+1 of lanes[w]; invalid flags are
     1 bit per base, little-endian within each u32 word.  Uses the native
-    C packer when available."""
+    C packer when available.  ``out``: a (lanes, invalid) pair of u32
+    arrays of those lengths to write into instead of new arrays."""
     if size % 32:
         raise ValueError(f"wire size must be a multiple of 32, got {size}")
     if native.available():
-        return native.pack_wire(codes, size)
+        return native.pack_wire(codes, size, out=out)
     codes_p = _pad(codes, size, codec.INVALID_CODE)
     invalid = codes_p > 3
     c = np.where(invalid, 0, codes_p).astype(np.uint32).reshape(-1, 16)
@@ -68,7 +72,11 @@ def pack_for_transfer(codes: np.ndarray, size: int):
     for j in range(16):
         lanes |= c[:, j] << np.uint32(2 * j)
     inv_words = np.packbits(invalid, bitorder="little").view(np.uint32)
-    return lanes, inv_words
+    if out is None:
+        return lanes, inv_words
+    out[0][:] = lanes
+    out[1][:] = inv_words
+    return out
 
 
 class PackedBatch(NamedTuple):
@@ -203,45 +211,401 @@ def _iter_batches_from_packed(
 # stream is O(chunk + largest record), never O(file).
 CHUNK_BYTES = int(os.environ.get("ORION_KMER_CHUNK_BYTES", str(64 << 20)))
 
+# Most parser threads a stream uses, whatever -t asks for: each holds a
+# piece of CHUNK_BYTES, so -t 0 on a large host must not mean one each
+# for hundreds of cores.  On the 8-core host of an NVIDIA H100 the parse
+# of 0.5 Gbp of reads is no faster on more than four threads (each call
+# slows as threads are added) and `count` no faster on more than two
+# (tools/torch_ingest_rate.py; PERF.md, "Host ingest").
+MAX_PARSE_THREADS = 4
 
-def stream_native_chunks(
-    path, k: int, normalize: bool = True, chunk_bytes: int | None = None
-) -> Iterator[tuple[np.ndarray, np.ndarray, list[bytes]]]:
-    """Chunked-decompression -> incremental native parse: yields
-    (codes, rec_ends, ids) tuples of WHOLE records; a record spanning a
-    chunk boundary is carried over (so one yield can exceed chunk_bytes
-    only by the unfinished record's length)."""
-    if chunk_bytes is None:
-        chunk_bytes = CHUNK_BYTES
-    src = str(path)
+
+def parse_threads() -> int:
+    """Parser threads of a streaming parse: -t/--threads (the CLI exports
+    it as ORION_KMER_THREADS; 0 and library callers without it = all
+    logical cores), at most MAX_PARSE_THREADS."""
+    return max(1, min(worker_threads(), MAX_PARSE_THREADS))
+
+
+def piece_bound(threads: int) -> int:
+    """Most pieces of a parallel parse alive at once: the queue of parsed
+    or parsing pieces (``threads``), the one the reader waits to queue, the
+    verifier's current and previous piece, and the serial chunk it
+    rebuilds after a wrong guess.  Each holds at most chunk_bytes plus the
+    longest record, and its parse output about as much again."""
+    return threads + 4
+
+
+class ParseStats:
+    """What a parallel parse did, for the caller that passes one: the
+    pieces alive at once (now and at the peak; ``piece_bound`` bounds
+    them) and the guesses of a cut that were wrong."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.live = self.peak = self.misses = 0
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self.live += n
+            self.peak = max(self.peak, self.live)
+
+
+_WHITESPACE = b" \t\r\n"
+_SCAN_WINDOW = 1 << 16
+
+
+def _first_non_ws(buf) -> int:
+    """Offset of the first byte of ``buf`` that is not whitespace (the
+    parser's format marker), or len(buf)."""
+    n = len(buf)
+    lo, w = 0, _SCAN_WINDOW
+    while lo < n:
+        part = bytes(buf[lo : lo + w])
+        rest = part.lstrip(_WHITESPACE)
+        if rest:
+            return lo + len(part) - len(rest)
+        lo += w
+        w *= 8
+    return n
+
+
+def _fastq_walk(t: bytes, pos: int) -> int:
+    """From a record start in ``t``, where the FASTQ parse with eof=0 stops:
+    the start of the first record with a line not ended by a newline, or
+    len(t).  Blank lines between records are skipped, as the parser does."""
+    n = len(t)
+    while pos < n:
+        rec = pos
+        nl = t.find(b"\n", pos)
+        if nl < 0:
+            return n if t[pos:] in (b"", b"\r") else rec
+        end = nl - 1 if nl > pos and t[nl - 1] == 13 else nl
+        if end == pos:  # blank line
+            pos = nl + 1
+            continue
+        x = nl
+        for _ in range(3):  # sequence, '+' and quality lines
+            x = t.find(b"\n", x + 1)
+            if x < 0:
+                return rec
+        pos = x + 1
+    return n
+
+
+def _fastq_anchor(t: bytes) -> int:
+    """The last line of ``t`` that starts with '@' and whose second-next
+    line starts with '+': a record start (a quality line may start with
+    '@', but the line two after it is a sequence line).  -1 if none."""
+    hi = len(t)
+    while True:
+        p = t.rfind(b"\n@", 0, hi)
+        if p < 0:
+            return -1
+        e0 = t.find(b"\n", p + 1)
+        e1 = t.find(b"\n", e0 + 1) if e0 >= 0 else -1
+        if 0 <= e1 < len(t) - 1 and t[e1 + 1] == 43:  # '+'
+            return p + 1
+        hi = p
+
+
+def guess_cut(buf, fmt: int) -> int:
+    """Where the parse of ``buf`` with eof=0 will stop (its ``consumed``),
+    from the bytes near its end alone: FASTA ('>'), the start of the last
+    header line; FASTQ ('@'), the start of the first record that is not
+    complete after the last certain record start.  A guess: the parallel
+    parse checks it against the parse and re-parses where it was wrong."""
+    n = len(buf)
+    w = _SCAN_WINDOW
+    while True:
+        lo = max(0, n - w)
+        t = bytes(buf[lo:])
+        if fmt == ord(">"):
+            p = t.rfind(b"\n>")
+            if p >= 0:
+                return lo + p + 1
+        else:
+            a = _fastq_anchor(t)
+            if a >= 0:
+                return lo + _fastq_walk(t, a)
+        if lo == 0:
+            break
+        w *= 8
+    q = _first_non_ws(buf)
+    if fmt == ord(">") or q == n:
+        return q
+    return q + _fastq_walk(bytes(buf[q:]), 0)
+
+
+def _join(tail, data) -> np.ndarray | bytes:
+    """tail + data (any buffers) as one buffer, copied by numpy outside
+    the GIL; ``data`` itself, as bytes or an array, when there is no
+    tail."""
+    if len(tail) == 0:
+        return data if isinstance(data, (bytes, np.ndarray)) else np.frombuffer(data, np.uint8)
+    out = np.empty(len(tail) + len(data), np.uint8)
+    out[: len(tail)] = np.frombuffer(tail, np.uint8)
+    out[len(tail) :] = np.frombuffer(data, np.uint8)
+    return out
+
+
+def _serial_chunks(f, src, k, normalize, chunk_bytes):
+    """The serial parse: each chunk read, joined to the carry and parsed
+    in turn on the calling thread."""
     seen = False
     carry = b""
-    with open_input(path) as f:
-        while True:
+    while True:
+        try:
+            data = f.read(chunk_bytes)
+        except OSError as e:
+            raise ContextError(f"Failed to read input file: {src!r}", e) from e
+        eof = not data
+        buf = carry + data if carry else data
+        if eof and not buf:
+            if seen:
+                return
+            raise native.NativeParseError(native.OKT_EMPTY, src)
+        try:
+            parsed = native.parse_fastx_raw(buf, k, normalize=normalize, eof=eof, source=src)
+        except native.NativeParseError as e:
+            if eof and seen and e.code == native.OKT_EMPTY:
+                return  # trailing whitespace after real records
+            raise
+        if parsed.rec_ends.shape[0]:
+            seen = True
+            yield parsed
+        if eof:
+            return
+        carry = buf[parsed.consumed :]
+
+
+def _put(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Put ``item`` unless ``stop`` is set first."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+class _Buffers:
+    """The pieces' byte buffers, each taken again once its piece is
+    retired, so a chunk is read into memory that is already mapped."""
+
+    def __init__(self, keep: int):
+        self._keep = keep
+        self._free: list[np.ndarray] = []
+        self._lock = threading.Lock()
+
+    def take(self, n: int) -> np.ndarray:
+        with self._lock:
+            for i, b in enumerate(self._free):
+                if b.shape[0] >= n:
+                    return self._free.pop(i)
+        return np.empty(n + (1 << 20), np.uint8)  # room for a carry to grow
+
+    def give(self, buf: np.ndarray | None) -> None:
+        if buf is not None:
+            with self._lock:
+                if len(self._free) < self._keep:
+                    self._free.append(buf)
+
+
+def _read_ahead(f, src, chunk_bytes, parse, pool, buffers, jobs, stop, stats) -> None:
+    """Reader stage of the parallel parse: read each chunk into a buffer
+    after the guessed carry, submit its parse and queue (start, buffer,
+    eof, future, the buffer's base) in stream order; a read error is
+    queued in its place.  A plain file is read straight into the buffer
+    (``readinto`` fills it as ``read`` of the same size would)."""
+    direct = isinstance(f, io.BufferedReader)
+    start = 0  # stream offset of the next piece's first byte
+    prev, prev_start = b"", 0
+    fmt = None  # the format marker, from the first byte that is not whitespace
+    try:
+        while not stop.is_set():
+            tail = memoryview(prev)[start - prev_start :]
+            t = len(tail)
+            base = buffers.take(t + chunk_bytes)
+            if t:
+                base[:t] = np.frombuffer(tail, np.uint8)
             try:
-                data = f.read(chunk_bytes)
+                if direct:
+                    n = f.readinto(memoryview(base)[t : t + chunk_bytes])
+                else:
+                    data = f.read(chunk_bytes)
+                    n = len(data)
+                    base[t : t + n] = np.frombuffer(data, np.uint8)
             except OSError as e:
-                raise ContextError(f"Failed to read input file: {src!r}", e) from e
-            eof = not data
-            buf = carry + data if carry else data
-            if eof and not buf:
+                _put(jobs, ContextError(f"Failed to read input file: {src!r}", e), stop)
+                return
+            eof = n == 0
+            buf = base[: t + n]
+            stats.add(1)
+            if not _put(jobs, (start, buf, eof, pool.submit(parse, buf, eof), base), stop) or eof:
+                return
+            if fmt is None:
+                q = _first_non_ws(buf)
+                fmt = int(buf[q]) if q < len(buf) else None
+            cut = len(buf) if fmt is None else guess_cut(buf, fmt)
+            prev, prev_start, start = buf, start, start + cut
+    except BaseException as e:  # noqa: BLE001 - raised by the verifier in order
+        _put(jobs, e, stop)
+
+
+def _parallel_chunks(f, src, k, normalize, chunk_bytes, threads, stats):
+    """The parse spread over ``threads`` parser threads, yielding exactly
+    the serial parse's chunks.
+
+    The reader guesses where each chunk's carry starts (``guess_cut``) and
+    parses the pieces ahead on a pool.  Here, in stream order, each piece
+    is checked against the true cut (the previous piece's start plus its
+    ``consumed``): when the guess holds, the piece is the serial chunk
+    byte for byte (by induction from offset 0); when not, the serial chunk
+    is rebuilt from the previous piece and parsed on this thread.  A
+    parse error counts only once every earlier piece has checked, so the
+    first error in stream order is raised, with the serial message."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def parse(buf, eof):
+        return native.parse_fastx_raw(buf, k, normalize=normalize, eof=eof, source=src)
+
+    pool = ThreadPoolExecutor(threads, thread_name_prefix="okt-parse")
+    buffers = _Buffers(keep=piece_bound(threads))
+    jobs: "queue.Queue" = queue.Queue(maxsize=threads)
+    stop = threading.Event()
+    reader = threading.Thread(
+        target=_read_ahead, args=(f, src, chunk_bytes, parse, pool, buffers, jobs, stop, stats), daemon=True
+    )
+    reader.start()
+    cut, seen = 0, False
+    prev, prev_start, have_prev = b"", 0, False  # the previous piece as parsed
+    prev_base = None  # its buffer, given back once the piece after it is done
+    try:
+        while True:
+            item = jobs.get()
+            if isinstance(item, BaseException):
+                raise item
+            start, buf, eof, fut, base = item
+            if start != cut:  # a wrong guess: rebuild the serial chunk
+                fut.cancel()  # its buffer is not given back: the parse may still read it
+                fut, base = None, None
+                stats.misses += 1
+                read_at = prev_start + len(prev)  # where this piece's chunk begins
+                buf = _join(memoryview(prev)[cut - prev_start :], memoryview(buf)[read_at - start :])
+                stats.add(1)  # the rebuilt piece, while the guessed one is still held
+                stats.add(-1)
+                start = cut
+            if eof and not len(buf):
                 if seen:
                     return
                 raise native.NativeParseError(native.OKT_EMPTY, src)
             try:
-                codes, rec_ends, ids, consumed = native.parse_fastx_chunk(
-                    buf, k, normalize=normalize, eof=eof, source=src
-                )
+                parsed = parse(buf, eof) if fut is None else fut.result()
             except native.NativeParseError as e:
                 if eof and seen and e.code == native.OKT_EMPTY:
                     return  # trailing whitespace after real records
                 raise
-            if ids:
+            if parsed.rec_ends.shape[0]:
                 seen = True
-                yield codes, rec_ends, ids
+                yield parsed
             if eof:
                 return
-            carry = buf[consumed:]
+            cut = start + parsed.consumed
+            if have_prev:
+                stats.add(-1)
+                buffers.give(prev_base)
+            prev, prev_start, prev_base, have_prev = buf, start, base, True
+    finally:
+        stop.set()
+        while reader.is_alive():
+            try:
+                jobs.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def native_chunks(
+    path,
+    k: int,
+    normalize: bool = True,
+    chunk_bytes: int | None = None,
+    threads: int | None = None,
+    stats: ParseStats | None = None,
+) -> Iterator[native.ParsedChunk]:
+    """The chunks of ``stream_native_chunks`` as ``native.ParsedChunk``s,
+    whose ids stay one blob: for the callers that use no ids.  ``stats``,
+    where given, records a parallel parse."""
+    if chunk_bytes is None:
+        chunk_bytes = CHUNK_BYTES
+    if threads is None:
+        threads = parse_threads()
+    src = str(path)
+    with open_input(path) as f:
+        if threads <= 1:
+            yield from _serial_chunks(f, src, k, normalize, chunk_bytes)
+        else:
+            stats = stats if stats is not None else ParseStats()
+            yield from _parallel_chunks(f, src, k, normalize, chunk_bytes, threads, stats)
+
+
+def stream_native_chunks(
+    path,
+    k: int,
+    normalize: bool = True,
+    chunk_bytes: int | None = None,
+    threads: int | None = None,
+    stats: ParseStats | None = None,
+) -> Iterator[tuple[np.ndarray, np.ndarray, list[bytes]]]:
+    """Chunked-decompression -> incremental native parse: yields
+    (codes, rec_ends, ids) tuples of WHOLE records; a record spanning a
+    chunk boundary is carried over (so one yield can exceed chunk_bytes
+    only by the unfinished record's length).
+
+    The parse runs on ``threads`` parser threads (default
+    ``parse_threads()``, from -t) and yields the same chunks, in the same
+    order, as the serial parse (``threads=1``) for any thread count and
+    chunk size."""
+    for p in native_chunks(path, k, normalize, chunk_bytes, threads, stats):
+        yield p.codes, p.rec_ends, p.ids()
+
+
+def _rebatch_arrays(code_arrays, k: int, batch_positions: int) -> Iterator[np.ndarray]:
+    """Cut a stream of code arrays into UNIFORM batch_positions-sized
+    batches with the usual (k-1) halo at every cut, so every batch but the
+    stream's last has the same size.  A batch inside one array is a view
+    of it: only a batch that spans two arrays is copied."""
+    if batch_positions < k:
+        raise ValueError(f"a batch of {batch_positions} positions holds no {k}-mer window")
+    held: list[np.ndarray] = []  # the codes not yet cut, in order
+    total = 0
+    step = batch_positions - (k - 1)  # halo: boundary windows produced once
+    for codes in code_arrays:
+        held.append(codes)
+        total += codes.shape[0]
+        while total >= batch_positions:
+            if held[0].shape[0] >= batch_positions:
+                yield held[0][:batch_positions]
+            else:
+                parts, need = [], batch_positions
+                for a in held:
+                    parts.append(a[:need])
+                    need -= parts[-1].shape[0]
+                    if not need:
+                        break
+                yield np.concatenate(parts)
+            drop = step
+            while drop:
+                if held[0].shape[0] <= drop:
+                    drop -= held.pop(0).shape[0]
+                else:
+                    held[0] = held[0][drop:]
+                    drop = 0
+            total -= step
+    if total:
+        yield np.concatenate(held) if len(held) > 1 else held[0]
 
 
 def _rebatch_codes(chunks, k: int, batch_positions: int) -> Iterator[PackedBatch]:
@@ -249,33 +613,38 @@ def _rebatch_codes(chunks, k: int, batch_positions: int) -> Iterator[PackedBatch
     batch_positions-sized batches, carrying the remainder across chunk
     boundaries (with the usual (k-1) halo at every split), so every
     batch but the file's last has the same size."""
-    buf: list[np.ndarray] = []
-    total = 0
-    for codes, _rec_ends, _ids in chunks:
-        buf.append(codes)
-        total += codes.shape[0]
-        while total >= batch_positions:
-            cat = np.concatenate(buf) if len(buf) > 1 else buf[0]
-            piece = cat[:batch_positions]
-            yield PackedBatch(
-                codes=piece,
-                invalid=piece == codec.INVALID_CODE,
-                owner=None,
-                first_rid=0,
-                record_ids=None,
-            )
-            rest = cat[batch_positions - (k - 1) :]  # halo at the split
-            buf = [rest]
-            total = rest.shape[0]
-    if total:
-        cat = np.concatenate(buf) if len(buf) > 1 else buf[0]
+    for piece in _rebatch_arrays((c[0] for c in chunks), k, batch_positions):
         yield PackedBatch(
-            codes=cat,
-            invalid=cat == codec.INVALID_CODE,
+            codes=piece,
+            invalid=piece == codec.INVALID_CODE,
             owner=None,
             first_rid=0,
             record_ids=None,
         )
+
+
+def stream_file_codes(path, k: int, normalize: bool = True, batch_positions: int = 0) -> Iterator[np.ndarray]:
+    """The codes of ``stream_file_batches(..., with_owner=False)``, batch by
+    batch, without the masks nobody on the count path reads.  With the
+    native parser the parse runs on ``parse_threads()`` threads, and the
+    checking and ordering of their pieces on a thread of its own, ahead of
+    the re-batching."""
+    batch_positions = batch_positions or default_batch()
+    if not native.available():
+        for pb in stream_file_batches(path, k, normalize, batch_positions):
+            yield pb.codes
+        return
+    native_err = native.NativeParseError  # bind before the generator loop
+    try:
+        threads = parse_threads()
+        chunks = native_chunks(path, k, normalize, threads=threads)
+        if threads > 1:
+            chunks = _prefetch(chunks, depth=2)
+        yield from _rebatch_arrays((p.codes for p in chunks), k, batch_positions)
+    except native_err as e:
+        raise FastxParseError(str(e)) from e
+    except ContextError as e:
+        raise FastxParseError(f"Failed to get input reader for file: {path}", e) from e
 
 
 def stream_file_batches(
@@ -289,19 +658,26 @@ def stream_file_batches(
     available (one pass, zero Python per record, O(chunk) memory), else
     the line-streaming Python parser (O(record) memory)."""
     batch_positions = batch_positions or default_batch()
+    if native.available() and not with_owner:
+        # uniform batch sizes across chunk boundaries (see _rebatch_arrays)
+        # -- counting is record-agnostic
+        for piece in stream_file_codes(path, k, normalize, batch_positions):
+            yield PackedBatch(
+                codes=piece,
+                invalid=piece == codec.INVALID_CODE,
+                owner=None,
+                first_rid=0,
+                record_ids=None,
+            )
+        return
     native_err = native.NativeParseError  # bind before the generator loop
     if native.available():
         try:
-            chunks = stream_native_chunks(path, k, normalize)
-            if not with_owner:
-                # uniform batch sizes across chunk boundaries (see
-                # _rebatch_codes) -- counting is record-agnostic
-                yield from _rebatch_codes(chunks, k, batch_positions)
-                return
             rid_offset = 0
-            for codes, rec_ends, ids in chunks:
+            for p in native_chunks(path, k, normalize):
+                ids = p.ids()
                 yield from _iter_batches_from_packed(
-                    codes, rec_ends, ids, k, batch_positions, with_owner, rid_offset
+                    p.codes, p.rec_ends, ids, k, batch_positions, with_owner, rid_offset
                 )
                 rid_offset += len(ids)
         except native_err as e:
@@ -406,32 +782,38 @@ class CountAccumulator:
 def _prefetch(iterator, depth: int | None = None):
     """Run an iterator on a background thread with a bounded queue so host
     parse/pack overlaps device compute.  Queue depth follows -t/--threads
-    (ORION_KMER_THREADS; min 2)."""
-    import queue
-    import threading
-
+    (ORION_KMER_THREADS; min 2).  A consumer that stops early stops the
+    thread, which closes the iterator."""
     if depth is None:
         depth = max(2, worker_threads(default=2))
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     _END = object()
     err: list[BaseException] = []
+    stop = threading.Event()
 
     def worker():
         try:
             for item in iterator:
-                q.put(item)
+                if not _put(q, item, stop):
+                    break
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
             err.append(e)
         finally:
-            q.put(_END)
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
+            _put(q, _END, stop)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is _END:
-            break
-        yield item
-    t.join()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            yield item
+    finally:
+        stop.set()
+        t.join()
     if err:
         raise err[0]

@@ -22,6 +22,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -165,6 +166,102 @@ class NativeParseError(ContextError):
         )
 
 
+class ParsedChunk(NamedTuple):
+    """One native parse of a buffer: the complete records' codes
+    (separated by k-1 invalid bytes), each record's code end, the records'
+    ids as one blob with each id's end, and the bytes consumed."""
+
+    codes: np.ndarray  # uint8 [N]
+    rec_ends: np.ndarray  # int64 [R]
+    id_blob: bytes
+    id_ends: np.ndarray  # int64 [R]
+    consumed: int
+
+    def ids(self) -> list[bytes]:
+        """The records' ids as a list of bytes (Python work for each
+        record, so built only for the callers that use ids)."""
+        starts = [0, *self.id_ends[:-1].tolist()]
+        blob = self.id_blob
+        return [blob[s:e] for s, e in zip(starts, self.id_ends.tolist())]
+
+
+# First guess of the records in a buffer: one per 16 bytes (a FASTQ record
+# of a 1 bp read takes 10).  A buffer with more retries with an exact
+# bound, so the common case scans nothing under the GIL before the parse.
+_BYTES_PER_RECORD_GUESS = 16
+
+
+def _parse_into(lib, ptr, n, k, normalize, eof, max_records):
+    sep = k - 1
+    codes_cap = n + sep * max_records + sep
+    codes = np.empty(codes_cap, dtype=np.uint8)
+    rec_end = np.empty(max_records, dtype=np.int64)
+    id_blob = np.empty(n + 1, dtype=np.uint8)
+    id_end = np.empty(max_records, dtype=np.int64)
+    out = np.zeros(4, dtype=np.int64)
+    rc = lib.okt_parse_fastx(
+        ptr,
+        n,
+        1 if normalize else 0,
+        sep,
+        1 if eof else 0,
+        codes.ctypes.data_as(ctypes.c_void_p),
+        codes_cap,
+        rec_end.ctypes.data_as(ctypes.c_void_p),
+        id_blob.ctypes.data_as(ctypes.c_void_p),
+        n + 1,
+        id_end.ctypes.data_as(ctypes.c_void_p),
+        max_records,
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return rc, codes, rec_end, id_blob, id_end, out
+
+
+def parse_fastx_raw(
+    data,
+    k: int,
+    normalize: bool = True,
+    eof: bool = True,
+    source: str = "<bytes>",
+) -> ParsedChunk:
+    """``parse_fastx_chunk`` without the Python list of ids: ``data`` is
+    ``bytes`` or a contiguous uint8 array, and the call holds the GIL only
+    around the native parse, so parses on several threads overlap."""
+    lib = _load()
+    assert lib is not None, "native ingest not available"
+    if isinstance(data, np.ndarray):
+        n = data.shape[0]
+        ptr = data.ctypes.data_as(ctypes.c_char_p)
+    else:
+        n = len(data)
+        ptr = data
+    if n == 0:
+        if eof:
+            raise NativeParseError(OKT_EMPTY, source)
+        empty = np.empty(0, np.int64)
+        return ParsedChunk(np.empty(0, np.uint8), empty, b"", empty, 0)
+    # The parse runs the same way under any capacity until it exceeds one,
+    # so a result other than OKT_CAPACITY under the guess is the result
+    # under the exact bound.  Exact: every record after the first starts
+    # with "\n>" or "\n@".
+    guess = max(n // _BYTES_PER_RECORD_GUESS + 2, 4)
+    rc, codes, rec_end, id_blob, id_end, out = _parse_into(lib, ptr, n, k, normalize, eof, guess)
+    if rc == OKT_CAPACITY:
+        raw = data.tobytes() if isinstance(data, np.ndarray) else data
+        exact = max(raw.count(b"\n>") + raw.count(b"\n@") + 2, 4)
+        rc, codes, rec_end, id_blob, id_end, out = _parse_into(lib, ptr, n, k, normalize, eof, exact)
+    if rc != OKT_OK:
+        raise NativeParseError(int(rc), source)
+    n_records, codes_len, id_len = int(out[0]), int(out[1]), int(out[2])
+    return ParsedChunk(
+        codes[:codes_len],
+        rec_end[:n_records].copy(),
+        id_blob[:id_len].tobytes(),
+        id_end[:n_records].copy(),
+        int(out[3]),
+    )
+
+
 def parse_fastx_chunk(
     data: bytes,
     k: int,
@@ -185,45 +282,8 @@ def parse_fastx_chunk(
     separated by k-1 invalid bytes; rec_code_end[i] is the end offset of
     record i's bases in codes.
     """
-    lib = _load()
-    assert lib is not None, "native ingest not available"
-    n = len(data)
-    if n == 0:
-        if eof:
-            raise NativeParseError(OKT_EMPTY, source)
-        return np.empty(0, np.uint8), np.empty(0, np.int64), [], 0
-    # upper bounds: every byte could be sequence; every 2 bytes a record
-    max_records = max(data.count(b"\n>") + data.count(b"\n@") + 2, 4)
-    sep = k - 1
-    codes_cap = n + sep * max_records + sep
-    codes = np.empty(codes_cap, dtype=np.uint8)
-    rec_end = np.empty(max_records, dtype=np.int64)
-    id_blob = np.empty(n + 1, dtype=np.uint8)
-    id_end = np.empty(max_records, dtype=np.int64)
-    out = np.zeros(4, dtype=np.int64)
-    rc = lib.okt_parse_fastx(
-        data,
-        n,
-        1 if normalize else 0,
-        sep,
-        1 if eof else 0,
-        codes.ctypes.data_as(ctypes.c_void_p),
-        codes_cap,
-        rec_end.ctypes.data_as(ctypes.c_void_p),
-        id_blob.ctypes.data_as(ctypes.c_void_p),
-        n + 1,
-        id_end.ctypes.data_as(ctypes.c_void_p),
-        max_records,
-        out.ctypes.data_as(ctypes.c_void_p),
-    )
-    if rc != OKT_OK:
-        raise NativeParseError(int(rc), source)
-    n_records, codes_len, id_len = int(out[0]), int(out[1]), int(out[2])
-    ids_bytes = id_blob[:id_len].tobytes()
-    ends = id_end[:n_records]
-    starts = np.concatenate([[0], ends[:-1]])
-    ids = [ids_bytes[s:e] for s, e in zip(starts.tolist(), ends.tolist())]
-    return codes[:codes_len], rec_end[:n_records].copy(), ids, int(out[3])
+    p = parse_fastx_raw(data, k, normalize=normalize, eof=eof, source=source)
+    return p.codes, p.rec_ends, p.ids(), p.consumed
 
 
 def parse_fastx_packed(
@@ -379,17 +439,25 @@ def counts_tsv_bytes(
     return memoryview(out.data)[: int(m)]
 
 
-def pack_wire(codes: np.ndarray, size: int):
+def pack_wire(codes: np.ndarray, size: int, out=None):
     """Native wire-format packing: codes u8[n] (255 = invalid), padded to
     ``size`` -> (lanes u32[size/16], invalid u32[size/32]).  Same output
-    as engine.pack_for_transfer's numpy path, ~5x faster single-core."""
+    as engine.pack_for_transfer's numpy path, ~5x faster single-core.
+    ``out``: a (lanes, invalid) pair of contiguous u32 arrays of exactly
+    those lengths to write into (pinned staging buffers) instead of new
+    arrays."""
     lib = _load()
     assert lib is not None, "native ingest not available"
     assert size % 32 == 0
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n = codes.shape[0]
-    lanes = np.empty(size // 16, dtype=np.uint32)
-    inv = np.empty(size // 32, dtype=np.uint32)
+    if out is None:
+        lanes = np.empty(size // 16, dtype=np.uint32)
+        inv = np.empty(size // 32, dtype=np.uint32)
+    else:
+        lanes, inv = out
+        assert lanes.shape == (size // 16,) and inv.shape == (size // 32,)
+        assert lanes.flags.c_contiguous and inv.flags.c_contiguous
     rc = lib.okt_pack_wire(
         codes.ctypes.data_as(ctypes.c_void_p),
         n,

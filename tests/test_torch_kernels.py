@@ -303,3 +303,25 @@ def test_joins_on_the_card_match_the_cpu(cuda):
         assert got[0].shape == q_.shape and got[1].shape == d_.shape
     for a_, b_ in ((d, e), (e, d), (e, e)):  # sorted unique sides only
         assert int(setops.intersection_size(a_.to(cuda), b_.to(cuda))) == 0
+
+
+@pytest.mark.cuda
+def test_pinned_ring_stages_the_cpu_batches(cuda, tmp_path, monkeypatch):
+    """``engine.staged_batches`` on the card packs each batch into the
+    pinned ring and copies it without blocking: with every batch held
+    on the card before any is read (so each ring buffer is packed again
+    while earlier copies may still run), the batches equal the CPU's."""
+    from orion_kmer_tpu_torch import engine
+    from orion_kmer_tpu_torch.host import _prefetch
+
+    rng = np.random.default_rng(3)
+    seqs = ["".join(rng.choice(list("ACGTN"), size=int(rng.integers(50, 3000)))) for _ in range(40)]
+    path = tmp_path / "in.fa"
+    path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
+    monkeypatch.setenv("ORION_KMER_THREADS", "4")  # four pack threads a batch
+    got = list(_prefetch(engine.staged_batches(path, 21, True, 4096, cuda)))
+    exp = list(engine.staged_batches(path, 21, True, 4096, torch.device("cpu")))
+    assert len(got) == len(exp) > 3 * engine.PinnedRing.SLOTS
+    for (gl, gi, gs, gn), (el, ei, es, en) in zip(got, exp):
+        assert (gs, gn) == (es, en) and gl.device.type == "cuda"
+        assert torch.equal(gl.cpu(), el) and torch.equal(gi.cpu(), ei)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Wall time of the port's CLI in two checkouts, in alternating pairs on one card.
 
-    python3 tools/torch_cli_ab.py --parent DIR [--change DIR] [--pairs N] [--gbp G]
+    python3 tools/torch_cli_ab.py --parent DIR [--change DIR] [--pairs N] [--gbp G] [--threads T]
 
 Makes the E. coli-like reads of ``chip_smoke.py`` phase 5 once, then runs
 `count -k 31 -m 2 --histogram` and `sketch -k 31 --scaled 1000` of them as
 `python -m orion_kmer_tpu_torch` subprocesses from the parent's checkout
 and from the change's (default: this one), with ORION_KMER_SHARDS=0: one
 untimed run each (it builds that checkout's kernels), then N pairs,
-alternating which side runs first.  The wall is the subprocess's, process
+alternating which side runs first, each with `-t T` (default 0: every
+core).  The wall is the subprocess's, process
 start included: what a user of the CLI waits for.  Both sides must write
 the same bytes.  To compare a commit with its parent, unpack the parent
 with ``git archive`` into a directory that .gitignore lists.  Prints one
@@ -49,6 +50,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gbp", type=float, default=0.5, help="Gbp of reads")
+    ap.add_argument("--threads", type=int, default=0, help="-t of every command (0: every core)")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -67,9 +69,9 @@ def main() -> int:
         fq = work / "reads.fastq"
         chip_smoke.write_reads_fastq(np, fq, np.random.default_rng(args.seed), args.gbp)
         commands = {
-            "count": lambda side: ["count", "-k", 31, "-m", 2, "--histogram", work / f"{side}.hist",
+            "count": lambda side: ["-t", args.threads, "count", "-k", 31, "-m", 2, "--histogram", work / f"{side}.hist",
                                    "-i", fq, "-o", work / f"{side}.tsv"],
-            "sketch": lambda side: ["sketch", "-k", 31, "--scaled", 1000, "-i", fq, "-o", work / f"{side}.sig"],
+            "sketch": lambda side: ["-t", args.threads, "sketch", "-k", 31, "--scaled", 1000, "-i", fq, "-o", work / f"{side}.sig"],
         }
         outputs = {"count": (".tsv", ".hist"), "sketch": (".sig",)}
         for name, argv in commands.items():
@@ -84,7 +86,7 @@ def main() -> int:
                     walls[side].append(run(roots[side], argv(side)))
             q = statistics.quantiles(walls["parent"], n=4)
             print(json.dumps({
-                "command": name, "card": card, "pairs": args.pairs,
+                "command": name, "threads": args.threads, "card": card, "pairs": args.pairs,
                 "parent_s": walls["parent"], "change_s": walls["change"],
                 "parent_median_s": statistics.median(walls["parent"]),
                 "change_median_s": statistics.median(walls["change"]),
