@@ -40,7 +40,10 @@ Phases, in order; any failure raises and exits non-zero:
      spills), `build -k 21`, the T*40 k = 32 edge, `compare`, `query -c 1`
      and `-c 5` and `classify -m 2 --output-tsv`, all through the CLI in
      subprocesses (four at a time), exactly against the numpy oracle of
-     the port's own codec.py;
+     the port's own codec.py; then `count`, `query -c 1` and `sketch` at
+     ORION_KMER_BATCH = k - 1 (every path takes batches of k), of a
+     24-base record at k = 9 and of 10 query reads at k = 21, against the
+     same oracle;
   5. realistic run: `count -k 31 -m 2 --histogram` over a synthetic
      E. coli-like FASTQ (a 4.64 Mbp genome, 150 bp reads, 0.2 %
      substitutions, a few N runs; --gbp of sequence), in process, with the
@@ -60,9 +63,12 @@ Phases, in order; any failure raises and exits non-zero:
      against a DB of the first two references; each checked exactly
      against the oracle (query: every read's hit count from
      ``engine.query_hits`` against the ids written, and the counts of a
-     sample of 20,000 reads against the oracle); then K4's own
-     entry, `sort_pairs`, on canonical keys of the reads (no command
-     reaches K4);
+     sample of 20,000 reads against the oracle; the same query warm at
+     -t 1 and at the default, byte-equal, with its device busy share
+     (torch.profiler) and its host stages: parse, cut, pack and copy,
+     the consumer's waits, the device; classify's busy share too); then
+     K4's own entry, `sort_pairs`, on canonical keys of the reads (no
+     command reaches K4);
   7. sketch (BASELINE config #3): `sketch -k 31 --scaled 1000` of 50
      synthetic 5 Mbp genomes in 5 clades (0.1-5 % substitutions from each
      clade's ancestor) and of the phase-5 reads, and `sketch-compare` of
@@ -1193,7 +1199,47 @@ def phase_exact(np, codec, work: Path, rng):
     keep = counts >= 2
     n_refs = check_classify(np, cl_out, cl_tsv, fq, db, ref.references, vals[keep], counts[keep])
     log(f"classify -m 2: {int(keep.sum())} input k-mers, {n_refs} references, exact")
+    phase_exact_small_batches(np, codec, work, reads[:10], db, union)
     return oracle_tsv[21]
+
+
+def phase_exact_small_batches(np, codec, work: Path, tiny_reads, db, union):
+    """Phase 4, stage 3: `count`, `query -c 1` and `sketch` at
+    ORION_KMER_BATCH = k - 1, where every path takes batches of k
+    positions: a 24-base record at k = 9 (the reads: it and T x 24), and 10
+    of the query reads at k = 21 against the phase's DB, each against the
+    oracle."""
+    from orion_kmer_tpu_torch.ops.hash import splitmix64_np
+
+    seq = b"ACGTACGTACGTACGTACGTAAAC"
+    fx, fx_reads, fx_db, tiny = work / "fx.fasta", work / "fx_reads.fasta", work / "fx.db", work / "tiny.fq"
+    fx.write_bytes(b">a\n" + seq + b"\n")
+    fx_reads.write_bytes(b">r1\n" + seq + b"\n>r2\n" + b"T" * 24 + b"\n")
+    tiny.write_bytes(b"".join(b"@q%d\n%s\n+\n%s\n" % (i, r, b"I" * len(r)) for i, r in enumerate(tiny_reads)))
+    run_cli(["build", "-k", 9, "-g", fx, "-o", fx_db])
+    jobs = []
+    for k, reads_in, query_db, tag in ((9, fx, fx_db, "fx"), (21, tiny, db, "tiny")):
+        env = {"ORION_KMER_BATCH": str(k - 1)}
+        query_in = fx_reads if tag == "fx" else tiny
+        jobs += [(["count", "-k", k, "-i", reads_in, "-o", work / f"{tag}.tsv"], env),
+                 (["query", "-d", query_db, "-r", query_in, "-c", 1, "-o", work / f"{tag}.ids"], env),
+                 (["sketch", "-k", k, "--scaled", 2, "-i", reads_in, "-o", work / f"{tag}.sig"], env)]
+    wall = run_clis(jobs)
+    log(f"count, query -c 1 and sketch at ORION_KMER_BATCH = k - 1, k = 9 and 21, as 6 processes: {wall:.1f} s")
+    for k, records, tag in ((9, [seq], "fx"), (21, tiny_reads, "tiny")):
+        check((work / f"{tag}.tsv").read_bytes() == render_tsv(np, *oracle_counts(np, codec, records, k), k),
+              f"count k={k} at a batch of k - 1 == oracle")
+        sep = np.full(k - 1, 255, np.uint8)
+        codes = np.concatenate([x for r in records for x in (codec.seq_to_codes(r), sep)])
+        h, a = sketch_oracle(np, codec, splitmix64_np, codes, k, 2)
+        sk = json.loads((work / f"{tag}.sig").read_text())["sketches"][0]
+        check(sig_hashes(sk) == h.tolist() and sk["abundances"] == a.tolist(), f"sketch k={k} at a batch of k - 1 == oracle")
+    check((work / "fx.tsv").stat().st_size == 60, "count k=9 of the 24-base record: 60 bytes")
+    check((work / "fx.ids").read_bytes() == b"r1\n", "query -c 1 k=9 at a batch of 8 == r1")
+    hits = window_hits(np, codec, tiny_reads, 21, union)
+    want = b"".join(b"q%d\n" % i for i, (r, h) in enumerate(zip(tiny_reads, hits.tolist())) if h >= 1 and len(r) >= 21)
+    check((work / "tiny.ids").read_bytes() == want, "query -c 1 k=21 at a batch of 20 == oracle")
+    log(f"batches of k - 1: count, query ({want.count(10)} of {len(tiny_reads)} reads) and sketch at k = 9 and 21, exact")
 
 
 def parse_rates(fq: Path, thread_counts, k: int = 31) -> dict:
@@ -1407,12 +1453,110 @@ def report(what, wall, launches, peak, extra=""):
     log(f"{what}: wall {wall:.3f} s{extra}, peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
 
 
+def write_references(np, work: Path, rng, genome) -> dict:
+    """Phase 6's three references as FASTA files: the phase-5 genome, a
+    copy with 1 % substitutions and an unrelated 5 Mbp genome.  Returns
+    {file name: (path, 2-bit codes)}."""
+    lut = np.frombuffer(BASES, np.uint8)
+    g_b = genome.copy()
+    subs = rng.random(g_b.shape[0]) < 0.01
+    g_b[subs] = (g_b[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+    g_c = rng.integers(0, 4, 5_000_000).astype(np.uint8)
+    out = {}
+    for name, g in (("genomeA.fa", genome), ("genomeB.fa", g_b), ("genomeC.fa", g_c)):
+        write_fasta(work / name, name.encode(), lut[g].tobytes())
+        out[name] = (work / name, g)
+    return out
+
+
+def busy_share(torch, run, wall: float):
+    """(device seconds, device seconds / wall) of one more ``run()``
+    (its result ignored) under torch.profiler, CUDA activity: every kernel
+    and copy; ``wall`` is the same work's wall without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    return device_s, device_s / wall
+
+
+def query_split(torch, engine, host, fq, db_vals, k: int, dev) -> dict:
+    """The host stages of a warm `query -c 10` at the current -t, each
+    drained alone, in seconds: the parse (raw bytes); the parse and the
+    cut into batches (``host._rebatch_records``); the whole host stage to
+    the card (``engine.query_batches``: parse, cut, the pack into the
+    pinned ring and the copies); then ``engine.query_file`` with the time
+    its consumer waited for a staged batch, its two parts (the stream of
+    every read's hits, ``engine._query_stream``, and the passing reads'
+    ids as lines, ``engine._lines_at``), and its device time (torch.profiler).  A
+    checkout without the staged query (a parent's) reports the parse, the
+    ``query_file`` wall and the device time."""
+    import threading
+
+    out = {"parse_threads": host.parse_threads()}
+    t0 = time.monotonic()
+    out["positions"] = sum(p.codes.shape[0] for p in host.native_chunks(fq, k, normalize=False))
+    out["parse_s"] = time.monotonic() - t0
+    waits = []
+    real = engine._prefetch
+    staged = hasattr(engine, "query_batches")
+    if staged:
+        batch = host.batch_for(k, dev)
+        t0 = time.monotonic()
+        chunks = host.native_chunks(fq, k, normalize=False)
+        if host.parse_threads() > 1:
+            chunks = host._prefetch(chunks, depth=2)
+        cut = host._rebatch_records(((p.codes, p.rec_ends, None) for p in chunks), k, batch)
+        out["batches"] = sum(1 for _ in cut)
+        out["parse_cut_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        for _ in engine.query_batches(fq, k, batch, dev):
+            pass
+        torch.cuda.synchronize()
+        out["stage_s"] = time.monotonic() - t0
+        consumer = threading.get_ident()
+
+        def waited(iterator, depth=None):
+            it = real(iterator, depth)
+            while True:
+                t0 = time.monotonic()
+                item = next(it, None)
+                if threading.get_ident() == consumer:  # not the parse's own prefetch
+                    waits.append(time.monotonic() - t0)
+                if item is None:
+                    return
+                yield item
+
+        engine._prefetch = waited
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.query_file(db_vals, fq, k, 10, dev)
+        torch.cuda.synchronize()
+        out["query_file_s"] = time.monotonic() - t0
+    finally:
+        engine._prefetch = real
+    if staged:
+        out["consumer_wait_s"] = sum(waits)
+        # query_file's two parts: the stream (every read's hits) and the passing reads' ids
+        t0 = time.monotonic()
+        blob, id_ends, lens, hits = engine._query_stream(db_vals, fq, k, dev)
+        out["stream_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        engine._lines_at(blob, id_ends, (hits >= 10) & (lens >= k))
+        out["passing_ids_s"] = time.monotonic() - t0
+    out["device_s"], _ = busy_share(torch, lambda: engine.query_file(db_vals, fq, k, 10, dev), 1.0)
+    return out
+
+
 def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, n_windows, genome, sample):
     """The realistic joins, each command in process with the launch
     counters zeroed just before it.  Returns the launches of each run, the
     references' oracle k-mer sets, the DB built from them and the count
     table of phase 5 (k-mers with count >= 2)."""
-    from orion_kmer_tpu_torch import cli, engine
+    from orion_kmer_tpu_torch import cli, engine, host
     from orion_kmer_tpu_torch.db import KmerDb
     from orion_kmer_tpu_torch.keys import keys_from_u64, u64_from_keys
 
@@ -1420,15 +1564,9 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     kernels = kernel_modules()
     sort = kernels["K4"]
 
-    lut = np.frombuffer(BASES, np.uint8)
-    g_b = genome.copy()
-    subs = rng.random(g_b.shape[0]) < 0.01
-    g_b[subs] = (g_b[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
-    g_c = rng.integers(0, 4, 5_000_000).astype(np.uint8)
     refs, paths = {}, []
-    for name, g in (("genomeA.fa", genome), ("genomeB.fa", g_b), ("genomeC.fa", g_c)):
-        write_fasta(work / name, name.encode(), lut[g].tobytes())
-        paths.append(work / name)
+    for name, (path, g) in write_references(np, work, rng, genome).items():
+        paths.append(path)
         refs[name] = sorted_unique(np, codec.extract_kmers_np(g, k))
     union = sorted_unique(np, np.concatenate(list(refs.values())))
     runs = {}
@@ -1441,7 +1579,8 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     runs["build"] = launches
 
     ids = work / "ids.txt"
-    wall, launches, peak = drive(torch, dev, ["query", "-d", db, "-r", fq, "-o", ids, "-c", 10])
+    query_argv = ["query", "-d", db, "-r", fq, "-o", ids, "-c", 10]
+    wall, launches, peak = drive(torch, dev, query_argv)
     # the per-read hit counts under the run (same batches): every read's
     # against the ids written, the sampled reads' exactly against the oracle
     all_ids, _, all_hits = engine.query_hits(union, fq, k, dev)
@@ -1456,6 +1595,19 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
            f"{len(picked)} sampled reads exact, min/1st pct/median/max {q})", wall, launches, peak,
            f", {n_windows / wall / 1e6:.3f} M windows/s")
     runs["query"] = launches
+    warm = {}
+    for t in (1, 0):
+        out = work / f"ids_t{t}.txt"
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        check(cli.main(["-t", str(t), *map(str, query_argv[:-4]), "-o", str(out), "-c", "10"]) == 0, "query exit code")
+        torch.cuda.synchronize()
+        warm[t] = time.monotonic() - t0
+        check(out.read_bytes() == ids.read_bytes(), f"query -c 10 at -t {t} == the counted run's bytes")
+    device_s, busy = busy_share(torch, lambda: cli.main([str(a) for a in query_argv]), warm[0])
+    log(f"query -c 10 warm: -t 1 {warm[1]:.3f} s, default {warm[0]:.3f} s (bytes equal); device time "
+        f"{device_s:.3f} s, busy share {100 * busy:.1f} % of the default's wall; card: {gpu_name_and_limit()}")
+    log("query host stages: " + json.dumps(query_split(torch, engine, host, fq, union, k, dev)))
 
     out, tsv = work / "cl.json", work / "cl.tsv"
     wall, launches, peak = drive(torch, dev, ["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv])
@@ -1463,6 +1615,10 @@ def phase_joins(np, torch, codec, work: Path, rng, dev, fq, count_tsv, n_reads, 
     check_classify(np, out, tsv, fq, db, refs, vals_tsv, counts_tsv)
     report(f"classify -m 2 ({vals_tsv.shape[0]} input k-mers, exact)", wall, launches, peak)
     runs["classify"] = launches
+    classify_argv = ["classify", "-i", fq, "-d", db, "-o", out, "--min-kmer-frequency", 2, "--output-tsv", tsv]
+    device_s, busy = busy_share(torch, lambda: cli.main([str(a) for a in classify_argv]), wall)
+    log(f"classify -m 2: device time {device_s:.3f} s, busy share {100 * busy:.1f} % of its wall; "
+        f"card: {gpu_name_and_limit()}")
 
     db2, cmp_out = work / "ab.db", work / "cmp.json"
     check(cli.main(["build", "-k", str(k), "-g", str(paths[0]), str(paths[1]), "-o", str(db2)]) == 0, "build A B")

@@ -1,7 +1,7 @@
 """query command: match reads against a KmerDb.
 
 The port of ``orion_kmer_tpu/commands/query.py``, wired to the port's
-``query_file`` (K1 extraction, K2 join).  Parity target: orion-kmer `query` (commands/query.rs:24-134).
+``query_lines`` (``query_file``'s ids as lines; K1 extraction, K2 join).  Parity target: orion-kmer `query` (commands/query.rs:24-134).
 Semantics: raw (unnormalized) read bytes (query.rs:80-81); window hits
 counted WITH multiplicity (query_tests.rs:121-125); reads shorter than k
 dropped (query.rs:83-85); output = matching read IDs, one per line, in
@@ -13,7 +13,7 @@ from __future__ import annotations
 import logging
 
 from ..db import KmerDb
-from ..engine import query_file
+from ..engine import query_lines
 from ..errors import ContextError, validate_k
 from ..ingest.compress import open_output
 from ..ingest.fastx import FastxParseError
@@ -37,20 +37,18 @@ def run_query(args, device) -> None:
 
     def task(pb):
         try:
-            return query_file(db_all, args.reads_file, k, args.min_hits, device)
+            return query_lines(db_all, args.reads_file, k, args.min_hits, device)
         except FastxParseError as e:
             raise ContextError(
                 f"Failed to open or parse FASTQ file: \"{args.reads_file}\"", e
             ) from e
 
-    matching = track_progress_and_resources(
+    lines = track_progress_and_resources(
         "Querying reads against database", 0, task
     )
 
     logger.info(
-        "Found %d reads matching criteria (min_hits: %d).", len(matching), args.min_hits
+        "Found %d reads matching criteria (min_hits: %d).", lines.count(b"\n"), args.min_hits
     )
     with open_output(args.output_file) as f:
-        for rid in matching:
-            f.write(rid)
-            f.write(b"\n")
+        f.write(lines)

@@ -23,7 +23,7 @@ import torch
 
 from ..engine import staged_batches
 from ..errors import ContextError, validate_k
-from ..host import CountAccumulator, _prefetch, default_batch
+from ..host import CountAccumulator, _prefetch, batch_for
 from ..ingest.compress import TextOut, read_bytes
 from ..ingest.fastx import FastxParseError
 from ..keys import u64_from_keys
@@ -43,7 +43,7 @@ def sketch_file(path, k: int, scaled: int, device, num: int = 0, batch_positions
     exist they persist (hashes only accumulate), so a dropped hash can
     never re-enter the bottom-num, and memory stays O(num)."""
     device = torch.device(device)
-    batch = batch_positions or default_batch(device)
+    batch = batch_for(k, device, batch_positions)
     acc = CountAccumulator()
     batches_since_trim = 0
     for lanes, inv_words, _size, n in _prefetch(staged_batches(path, k, True, batch, device)):

@@ -5,14 +5,17 @@ The torch counterpart of ``orion_kmer_tpu/engine.py``'s
 ``DeviceCountTable``, ``count_file``, ``unique_from_file``,
 ``query_file``/``query_records``, ``ClassifyJoiner`` and
 ``intersection_size_host``, plus ``query_hits``, the per-read hit counts
-under ``query_file``, and ``staged_batches``, which ``count_file`` and
+under ``query_file``, ``query_lines``, its ids as the query command
+writes them, and ``staged_batches``, which ``count_file`` and
 ``commands.sketch.sketch_file`` share.  For counting, the host
 packs FASTA/FASTQ records into wire-format batches on a prefetch thread
 (``host.py``) and stages them to the device; the device extracts and
 sorts each batch into a raw run of canonical keys, accumulates runs in an
 LSM merge forest, run-length encodes once per flush, and folds each
 flush into a device-resident count table; the host sees data only when
-the table spills or at the end.
+the table spills or at the end.  ``query_file`` streams its batches the
+same way (``query_batches``) and reads each batch's per-read hits one
+batch late.
 
 Everything runs on the ``device`` the caller passes: CUDA tensors go
 through the kernels of ``csrc/``, CPU tensors through their plain torch
@@ -24,7 +27,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Iterable
+from typing import Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,12 +38,13 @@ from .host import (
     CountAccumulator,
     _bucket,
     _prefetch,
-    default_batch,
+    _rebatch_records,
+    batch_for,
     iter_packed_batches,
+    native_chunks,
     pack_for_transfer,
     parse_threads,
     stream_file_codes,
-    stream_native_chunks,
 )
 from .ingest import native
 from .ingest.fastx import FastxParseError, Record, parse_fastx_file
@@ -184,12 +188,12 @@ class DeviceCountTable:
 
 
 class PinnedRing:
-    """A few pinned host buffers that wire batches are packed straight
-    into and copied from without blocking; a buffer is packed again only
-    once the copy that last read it has completed (its CUDA event).  A
-    batch is packed in ``parts`` slices of whole wire words at once (the
-    parser threads, -t), on threads of the ring's own: the native packer
-    releases the GIL."""
+    """A few pinned host buffers that wire batches (and a query batch's
+    record starts) are packed straight into and copied from without
+    blocking; a buffer is packed again only once the copy that last read
+    it has completed (its CUDA event).  A batch is packed in ``parts``
+    slices of whole wire words at once (the parser threads, -t), on
+    threads of the ring's own: the native packer releases the GIL."""
 
     SLOTS = 3
 
@@ -222,23 +226,31 @@ class PinnedRing:
         for f in parts:
             f.result()
 
-    def stage(self, codes: np.ndarray, size: int):
+    def stage(self, codes: np.ndarray, size: int, starts: np.ndarray | None = None):
         """Pack ``codes`` at wire size ``size`` into the next buffer and
-        start its copy to the device: (lanes, invalid words) there."""
+        start its copy to the device: (lanes, invalid words) there, and
+        ``starts`` (int64) copied beside them when given."""
         i = self._next
         self._next = (i + 1) % self.SLOTS
         slot = self._slots[i]
         if slot is not None:
             slot[2].synchronize()
         if slot is None or slot[0].shape[0] < size // 16:
-            slot = self._slots[i] = (
+            slot = self._slots[i] = [
                 torch.empty(size // 16, dtype=torch.int32, pin_memory=True),
                 torch.empty(size // 32, dtype=torch.int32, pin_memory=True),
                 torch.cuda.Event(),
-            )
+                None if slot is None else slot[3],
+            ]
         lanes, inv, done = slot[0][: size // 16], slot[1][: size // 32], slot[2]
         self._pack(codes, size, lanes.numpy().view(np.uint32), inv.numpy().view(np.uint32))
         staged = lanes.to(self.device, non_blocking=True), inv.to(self.device, non_blocking=True)
+        if starts is not None:
+            m = starts.shape[0]
+            if slot[3] is None or slot[3].shape[0] < m:
+                slot[3] = torch.empty(_bucket(m), dtype=torch.int64, pin_memory=True)
+            slot[3].numpy()[:m] = starts
+            staged += (slot[3][:m].to(self.device, non_blocking=True),)
         done.record(torch.cuda.current_stream(self.device))
         return staged
 
@@ -300,7 +312,7 @@ def count_file(
     so.  Returns (u64 values ascending, int64 counts)."""
     device = torch.device(device)
     table = _make_count_table(k, device)
-    batch = default_batch(device)
+    batch = batch_for(k, device)
     if isinstance(table, DeviceCountTable):
         batches = staged_batches(path, k, normalize, batch, device)
 
@@ -346,31 +358,38 @@ def _db_on_device(db_vals: np.ndarray, device) -> torch.Tensor:
     return keys_from_u64(db_vals).to(device)
 
 
-def _batch_hits(piece: np.ndarray, starts: np.ndarray, db_keys, k: int, device) -> np.ndarray:
-    """Per-record window hits of one query batch.
+def _batch_hits(lanes, inv_words, size: int, n: int, starts, db_keys, k: int):
+    """Per-record window hits of one staged query batch, as an int64
+    tensor on its device; no device value is read.
 
-    piece: 2-bit codes (255 = invalid) of the batch; starts: ascending
-    batch-local start of each record's region (a record's region runs to
-    the next start, its separator included; the first may be negative
-    when the record began in an earlier batch).  The windows are
-    extracted (K1) in position order, sorted with their positions, and
-    the valid prefix -- invalid windows hold SENTINEL_KEY, which no
-    canonical k-mer equals -- is joined with the DB (K2); the hits of a
-    record are a difference of prefix sums over the member positions."""
+    lanes, inv_words: the batch's wire format (``size`` positions, the
+    first ``n`` real); starts: int64, the ascending batch-local start of
+    each record's region, clamped at 0 (a record's region runs to the next
+    start, its separator included).  The windows are extracted (K1) in
+    position order and sorted with their positions, and the whole sorted
+    batch is joined with the DB (K2): invalid windows hold SENTINEL_KEY,
+    which sorts last, and their positions go to the join's spare slot, so
+    none is a member, not even of a DB that holds the sentinel's value
+    (T^32 at k = 32).  The hits of a record are a difference of prefix
+    sums over the member positions."""
+    keys, n_valid = extract_keys(lanes, inv_words, k, n)
+    skeys, order = torch.sort(keys)
+    valid = torch.arange(size, device=keys.device) < n_valid
+    member = setops.member_positions(db_keys, skeys, torch.where(valid, order, size), size)
+    prefix = torch.zeros(size + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(member, 0, out=prefix[1:])
+    hi = torch.cat([starts[1:], starts.new_full((1,), size)])
+    return prefix[hi] - prefix[starts]
+
+
+def _staged_plain(piece: np.ndarray, starts: np.ndarray, device):
+    """One query batch packed and copied to ``device`` without a ring:
+    (lanes, invalid words, size, n, starts clamped at 0)."""
     n = piece.shape[0]
     size = -(-n // 32) * 32
     lanes, inv_words = pack_for_transfer(piece, size)
-    keys, n_valid = extract_keys(
-        to_device(lanes, device), to_device(inv_words, device), k, n
-    )
-    skeys, order = torch.sort(keys)
-    m = int(n_valid)
-    member = setops.member_positions(db_keys, skeys[:m], order[:m], size)
-    prefix = torch.zeros(size + 1, dtype=torch.int64, device=device)
-    torch.cumsum(member, 0, out=prefix[1:])
     lo = torch.from_numpy(np.maximum(starts, 0).astype(np.int64)).to(device)
-    hi = torch.cat([lo[1:], lo.new_full((1,), size)])
-    return (prefix[hi] - prefix[lo]).cpu().numpy()
+    return to_device(lanes, device), to_device(inv_words, device), size, n, lo
 
 
 def _records_hits(db_keys, records: list[Record], k: int, device) -> np.ndarray:
@@ -378,11 +397,12 @@ def _records_hits(db_keys, records: list[Record], k: int, device) -> np.ndarray:
     normalization), in memory."""
     hits = np.zeros(len(records), dtype=np.int64)
     for pb in iter_packed_batches(
-        records, k, normalize=False, batch_positions=default_batch(device), with_owner=True
+        records, k, normalize=False, batch_positions=batch_for(k, device), with_owner=True
     ):
         nr = len(pb.record_ids)
         starts = np.searchsorted(pb.owner, np.arange(nr))
-        np.add.at(hits, pb.first_rid + np.arange(nr), _batch_hits(pb.codes, starts, db_keys, k, device))
+        batch_hits = _batch_hits(*_staged_plain(pb.codes, starts, device), db_keys, k)
+        np.add.at(hits, pb.first_rid + np.arange(nr), batch_hits.cpu().numpy())
     return hits
 
 
@@ -404,62 +424,179 @@ def query_records(
     return _passing([r.id for r in records], [len(r.seq) for r in records], hits, k, min_hits)
 
 
-def query_hits(
-    db_vals: np.ndarray, path, k: int, device
-) -> tuple[list[bytes], list[int], np.ndarray]:
-    """(ids, lengths, window hits) of every read of a file, in input
-    order.  Streamed: chunked native parse into a rolling buffer of
-    uniform batches with a (k-1) halo at each cut, so every window is
-    joined exactly once and memory is O(chunk)."""
+class QueryBatch(NamedTuple):
+    """One query batch as ``query_batches`` stages it."""
+
+    lanes: torch.Tensor | None  # int32 wire lanes on the device; None: no positions, records only
+    inv_words: torch.Tensor | None  # int32 invalid words on the device
+    size: int  # wire positions, a multiple of 32
+    n: int  # real positions
+    starts: torch.Tensor | None  # int64 batch-local record starts, clamped at 0, on the device
+    first_rid: int  # global index of the batch's first record
+    records: list  # (id blob, id ends, lengths) of each chunk parsed since the previous batch
+
+
+def query_batches(path, k: int, batch: int, device):
+    """Parse (raw bytes, on the -t parser threads), cut
+    (``host._rebatch_records``), wire-pack and stage the query batches of
+    a file; run on the prefetch thread, so the host-to-device copies are
+    enqueued before the consumer needs them, as ``staged_batches`` does
+    for counting.  On CUDA a batch and its record starts are packed into a
+    ``PinnedRing`` slot (the pack split over the parser threads) and
+    copied without blocking; on the CPU the tensors are views of the
+    packed arrays."""
+    device = torch.device(device)
+    threads = parse_threads()
+    ring = PinnedRing(device, threads) if device.type == "cuda" else None
+    chunks = native_chunks(path, k, normalize=False, threads=threads)
+    if threads > 1:
+        chunks = _prefetch(chunks, depth=2)  # the pieces checked and ordered on a thread of their own
+    stream = ((p.codes, p.rec_ends, (p.id_blob, p.id_ends)) for p in chunks)
+    try:
+        for piece, starts, rids, new in _rebatch_records(stream, k, batch):
+            records = [(blob, ends, lens) for (blob, ends), lens in new]
+            if piece.shape[0] == 0:
+                yield QueryBatch(None, None, 0, 0, None, 0, records)
+            elif ring is None:
+                lanes, inv_words, size, n, lo = _staged_plain(piece, starts, device)
+                yield QueryBatch(lanes, inv_words, size, n, lo, int(rids[0]), records)
+            else:
+                n = piece.shape[0]
+                size = -(-n // 32) * 32
+                lanes, inv_words, lo = ring.stage(piece, size, np.maximum(starts, 0))
+                yield QueryBatch(lanes, inv_words, size, n, lo, int(rids[0]), records)
+    finally:
+        if ring is not None:
+            ring.close()
+
+
+class _LateHits:
+    """The per-read hit totals of a query, each batch's hits folded in
+    one batch late: on CUDA they are copied into a pinned buffer behind an
+    event when the batch is launched, and read once the next batch has
+    been launched, so the device always has a batch queued and the host
+    waits once a batch.  Two buffers: one being filled, one being read."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.hits = np.zeros(1024, dtype=np.int64)  # grown geometrically
+        self._cuda = device.type == "cuda"
+        self._bufs: list = [None, None]
+        self._events = [torch.cuda.Event(), torch.cuda.Event()] if self._cuda else None
+        self._next = 0
+        self._pending = None  # (first rid, host hits, event) of the batch launched last
+
+    def grow(self, n_records: int) -> None:
+        if n_records > self.hits.shape[0]:
+            more = np.zeros(max(self.hits.shape[0], n_records), dtype=np.int64)
+            self.hits = np.concatenate([self.hits, more])
+
+    def push(self, first_rid: int, batch_hits: torch.Tensor) -> None:
+        """Start the fetch of one launched batch's hits, then fold the
+        previous batch's."""
+        event = None
+        if self._cuda:
+            i = self._next
+            self._next ^= 1
+            m = batch_hits.shape[0]
+            if self._bufs[i] is None or self._bufs[i].shape[0] < m:
+                self._bufs[i] = torch.empty(_bucket(m), dtype=torch.int64, pin_memory=True)
+            host = self._bufs[i][:m]
+            host.copy_(batch_hits, non_blocking=True)
+            event = self._events[i]
+            event.record(torch.cuda.current_stream(self.device))
+            batch_hits = host
+        self.flush()
+        self._pending = (first_rid, batch_hits, event)
+
+    def flush(self) -> None:
+        """Fold the pending batch's hits in."""
+        if self._pending is None:
+            return
+        first_rid, host, event = self._pending
+        self._pending = None
+        if event is not None:
+            event.synchronize()
+        # a batch's records are distinct and contiguous, so adding to the
+        # slice folds a record split across cuts
+        self.hits[first_rid : first_rid + host.shape[0]] += host.numpy()
+
+
+def _query_stream(db_vals: np.ndarray, path, k: int, device):
+    """(id blob, each id's end in it, lengths, window hits) of every read
+    of a file, in input order: the batches of ``query_batches``, staged on
+    the prefetch thread, launched here and their hits read one batch late
+    (``_LateHits``).  Memory is O(chunk) beside the per-read arrays."""
     device = torch.device(device)
     db_keys = _db_on_device(db_vals, device)
     if not native.available():
         records = list(parse_fastx_file(path))
-        hits = _records_hits(db_keys, records, k, device)
-        return [r.id for r in records], [len(r.seq) for r in records], hits
-    B = default_batch(device)
-    sep = k - 1
-    all_ids: list[bytes] = []
-    all_lens: list[int] = []
-    hits = np.zeros(1024, dtype=np.int64)  # grown geometrically below
-    # rolling coordinates relative to buf[0]: each record keeps (start,
-    # region end, id); a start goes negative once its record spans a cut
-    buf = np.empty(0, np.uint8)
-    bstarts = np.empty(0, np.int64)
-    bends = np.empty(0, np.int64)
-    brids = np.empty(0, np.int64)
+        ids = [r.id for r in records]
+        id_ends = np.cumsum([len(i) for i in ids], dtype=np.int64)
+        lens = np.array([len(r.seq) for r in records], dtype=np.int64)
+        return b"".join(ids), id_ends, lens, _records_hits(db_keys, records, k, device)
+    blobs, id_ends, lens = [], [], []
+    n_records = blob_len = 0
+    late = _LateHits(device)
     try:
-        for codes, rec_ends, ids in stream_native_chunks(path, k, normalize=False):
-            base = buf.shape[0]
-            starts = np.concatenate([[0], rec_ends[:-1] + sep])
-            rid_base = len(all_ids)
-            all_ids.extend(ids)
-            all_lens.extend((rec_ends - starts).tolist())
-            if len(all_ids) > hits.shape[0]:
-                hits = np.concatenate([hits, np.zeros(max(hits.shape[0], len(all_ids)), np.int64)])
-            buf = np.concatenate([buf, codes]) if base else codes
-            bstarts = np.concatenate([bstarts, base + starts])
-            bends = np.concatenate([bends, base + rec_ends + sep])
-            brids = np.concatenate([brids, rid_base + np.arange(len(ids), dtype=np.int64)])
-            while buf.shape[0] >= B:
-                mask = bstarts < B
-                np.add.at(hits, brids[mask], _batch_hits(buf[:B], bstarts[mask], db_keys, k, device))
-                cut = B - sep  # halo: the windows at the cut run in the next batch
-                buf = buf[cut:]
-                keep = bends > cut
-                bstarts, bends, brids = bstarts[keep] - cut, bends[keep] - cut, brids[keep]
-        if buf.shape[0]:
-            np.add.at(hits, brids, _batch_hits(buf, bstarts, db_keys, k, device))
+        for qb in _prefetch(query_batches(path, k, batch_for(k, device), device)):
+            for blob, ends, chunk_lens in qb.records:
+                blobs.append(blob)
+                id_ends.append(ends + blob_len)
+                lens.append(chunk_lens)
+                blob_len += len(blob)
+                n_records += chunk_lens.shape[0]
+            late.grow(n_records)
+            if qb.n:
+                late.push(qb.first_rid, _batch_hits(qb.lanes, qb.inv_words, qb.size, qb.n, qb.starts, db_keys, k))
+        late.flush()
     except native.NativeParseError as e:
         raise FastxParseError(str(e)) from e
     except ContextError as e:
         raise FastxParseError(f"Failed to get input reader for file: {path}", e) from e
-    return all_ids, all_lens, hits[: len(all_ids)]
+    empty = np.empty(0, np.int64)
+    return (
+        b"".join(blobs),
+        np.concatenate(id_ends) if id_ends else empty,
+        np.concatenate(lens) if lens else empty,
+        late.hits[:n_records],
+    )
+
+
+def _lines_at(blob: bytes, id_ends: np.ndarray, keep: np.ndarray) -> bytes:
+    """The ids of an id blob where ``keep`` holds, each followed by a
+    newline, gathered in numpy: no Python object per read (a parsed id
+    holds no newline)."""
+    n = id_ends.shape[0]
+    newline = id_ends + np.arange(n)  # each id's newline in the text of every id
+    text = np.full(len(blob) + n, ord("\n"), dtype=np.uint8)
+    is_id = np.ones(text.shape[0], dtype=bool)
+    is_id[newline] = False
+    text[is_id] = np.frombuffer(blob, np.uint8)
+    return text[np.repeat(keep, np.diff(id_ends, prepend=0) + 1)].tobytes()
+
+
+def query_hits(
+    db_vals: np.ndarray, path, k: int, device
+) -> tuple[list[bytes], list[int], np.ndarray]:
+    """(ids, lengths, window hits) of every read of a file, in input
+    order.  Streamed: uniform batches with a (k-1) halo at each cut, so
+    every window is joined exactly once and memory is O(chunk)."""
+    blob, id_ends, lens, hits = _query_stream(db_vals, path, k, device)
+    ids = _lines_at(blob, id_ends, np.ones(id_ends.shape[0], dtype=bool)).split(b"\n")[:-1]
+    return ids, lens.tolist(), hits
+
+
+def query_lines(db_vals: np.ndarray, path, k: int, min_hits: int, device) -> bytes:
+    """``query_file``'s ids as the query command writes them, each
+    followed by a newline; only the passing reads' bytes are gathered."""
+    blob, id_ends, lens, hits = _query_stream(db_vals, path, k, device)
+    return _lines_at(blob, id_ends, (hits >= min_hits) & (lens >= k))
 
 
 def query_file(db_vals: np.ndarray, path, k: int, min_hits: int, device) -> list[bytes]:
-    """``query_records`` over a file, streamed through ``query_hits``."""
-    return _passing(*query_hits(db_vals, path, k, device), k, min_hits)
+    """``query_records`` over a file, streamed (``_query_stream``)."""
+    return query_lines(db_vals, path, k, min_hits, device).split(b"\n")[:-1]
 
 
 class ClassifyJoiner:

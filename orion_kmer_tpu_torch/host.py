@@ -41,6 +41,15 @@ def default_batch(device=None) -> int:
     return (1 << 24) if is_cuda else (1 << 22)
 
 
+def batch_for(k: int, device=None, batch_positions: int | None = None) -> int:
+    """Positions per batch of a k-mer stream: ``batch_positions`` when
+    given, else ``default_batch(device)``, and never fewer than k, so
+    every batch holds a window and every cut advances (by one position at
+    a batch of k, as ``iter_packed_batches`` does).  Every batching path
+    takes its size from here."""
+    return max(batch_positions or default_batch(device), k)
+
+
 def _bucket(n: int, minimum: int = _MIN_BUCKET) -> int:
     return max(minimum, 1 << max(n - 1, 1).bit_length())
 
@@ -101,7 +110,7 @@ def iter_packed_batches(
     same global record index (= first_rid + local owner), and callers
     must sum per-record statistics across batches.
     """
-    batch_positions = batch_positions or default_batch()
+    batch_positions = batch_for(k, None, batch_positions)
     sep = k - 1
     sep_arr = np.full(sep, codec.INVALID_CODE, dtype=np.uint8)
 
@@ -608,6 +617,68 @@ def _rebatch_arrays(code_arrays, k: int, batch_positions: int) -> Iterator[np.nd
         yield np.concatenate(held) if len(held) > 1 else held[0]
 
 
+def _rebatch_records(chunks, k: int, batch_positions: int):
+    """Cut a (codes, rec_ends, ids) stream of whole records, as
+    ``stream_native_chunks`` yields it, into the UNIFORM batches of
+    ``_rebatch_arrays`` (a (k-1) halo at every cut), keeping the records
+    of each batch.
+
+    Yields (piece, starts, rids, new) per batch: the batch's codes, a view
+    where they lie inside one chunk and a copy only where they span
+    chunks; the batch-local start of every record with positions in it (a
+    record's region runs to the next start, its separator included; the
+    first start is negative when the record began in an earlier batch);
+    those records' global indices, ascending and contiguous; and, for each
+    chunk received since the previous yield, (ids, lengths) of its
+    records, the ids passed on as the chunk gave them.  Where the stream
+    leaves records whose ids were not yet yielded but no positions after
+    the last cut, it ends with an empty piece that carries them."""
+    if batch_positions < k:
+        raise ValueError(f"a batch of {batch_positions} positions holds no {k}-mer window")
+    sep = k - 1
+    step = batch_positions - sep
+    held: list[tuple] = []  # (codes, offset, starts, region ends, first rid) of the chunks not yet cut past
+    new: list[tuple] = []
+    start = total = n_records = 0  # stream offsets of the next batch and of the end; records so far
+
+    def cut(end: int, last: bool):
+        parts, starts, rids = [], [], []
+        for codes, off, st, en, rid0 in held:
+            if off >= end and not last:
+                break
+            part = codes[max(start - off, 0) : end - off]
+            if part.shape[0]:
+                parts.append(part)
+            # the records whose regions reach past the cut and begin before
+            # the batch's end (at the stream's end: every one left)
+            r0 = int(np.searchsorted(en, start - off, side="right"))
+            r1 = st.shape[0] if last else int(np.searchsorted(st, end - off, side="left"))
+            starts.append(st[r0:r1] + (off - start))
+            rids.append(np.arange(rid0 + r0, rid0 + r1, dtype=np.int64))
+        piece = parts[0] if len(parts) == 1 else np.concatenate(parts) if parts else np.empty(0, np.uint8)
+        return piece, np.concatenate(starts), np.concatenate(rids)
+
+    for codes, rec_ends, ids in chunks:
+        st = np.empty(rec_ends.shape[0], np.int64)
+        st[:1] = 0
+        st[1:] = rec_ends[:-1] + sep
+        held.append((codes, total, st, rec_ends + sep, n_records))
+        new.append((ids, rec_ends - st))
+        total += codes.shape[0]
+        n_records += rec_ends.shape[0]
+        while total - start >= batch_positions:
+            yield (*cut(start + batch_positions, False), new)
+            new = []
+            start += step
+            while held and held[0][1] + held[0][0].shape[0] <= start:
+                held.pop(0)  # every record of it ends before the next batch
+    if total > start:
+        yield (*cut(total, True), new)
+    elif new:
+        empty = np.empty(0, np.int64)
+        yield np.empty(0, np.uint8), empty, empty, new
+
+
 def _rebatch_codes(chunks, k: int, batch_positions: int) -> Iterator[PackedBatch]:
     """Re-batch a (codes, rec_ends, ids) chunk stream into UNIFORM
     batch_positions-sized batches, carrying the remainder across chunk
@@ -629,7 +700,7 @@ def stream_file_codes(path, k: int, normalize: bool = True, batch_positions: int
     native parser the parse runs on ``parse_threads()`` threads, and the
     checking and ordering of their pieces on a thread of its own, ahead of
     the re-batching."""
-    batch_positions = batch_positions or default_batch()
+    batch_positions = batch_for(k, None, batch_positions)
     if not native.available():
         for pb in stream_file_batches(path, k, normalize, batch_positions):
             yield pb.codes
@@ -657,7 +728,7 @@ def stream_file_batches(
     """File -> PackedBatch stream via the native C++ tokenizer when
     available (one pass, zero Python per record, O(chunk) memory), else
     the line-streaming Python parser (O(record) memory)."""
-    batch_positions = batch_positions or default_batch()
+    batch_positions = batch_for(k, None, batch_positions)
     if native.available() and not with_owner:
         # uniform batch sizes across chunk boundaries (see _rebatch_arrays)
         # -- counting is record-agnostic

@@ -325,3 +325,44 @@ def test_pinned_ring_stages_the_cpu_batches(cuda, tmp_path, monkeypatch):
     for (gl, gi, gs, gn), (el, ei, es, en) in zip(got, exp):
         assert (gs, gn) == (es, en) and gl.device.type == "cuda"
         assert torch.equal(gl.cpu(), el) and torch.equal(gi.cpu(), ei)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", ["1", "4"])
+def test_query_stream_on_the_card_matches_the_oracle(cuda, tmp_path, monkeypatch, threads):
+    """``engine.query_hits`` on the card (each batch and its record starts
+    packed into the pinned ring, the hits read one batch late) against the
+    codec oracle and the CPU path, with chunks and batches small enough
+    that records span both, and a DB that holds the all-ones value (k =
+    32 T^32, the sentinel), which no invalid window may match."""
+    from orion_kmer_tpu_torch import engine, host
+
+    k = 32
+    rng = np.random.default_rng(int(threads))
+    genome = rng.choice(list("ACGT"), 20_000)
+    reads = []
+    for i in range(600):
+        n = int(rng.integers(1, 400)) if i % 50 else int(rng.integers(2000, 9000))
+        p = int(rng.integers(0, genome.shape[0] - n))
+        s = genome[p : p + n].copy()
+        s[rng.random(n) < 0.005] = "N"
+        reads.append("".join(s))
+    reads += ["T" * 40, "A" * 33]
+    path = tmp_path / "r.fq"
+    path.write_text("".join(f"@q{i}\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(reads)))
+    db = np.unique(np.concatenate([
+        codec.extract_kmers_np(codec.seq_to_codes("".join(genome).encode()), k),
+        np.array([0, 0xFFFF_FFFF_FFFF_FFFF], np.uint64),
+    ]))
+    monkeypatch.setenv("ORION_KMER_BATCH", "8192")
+    monkeypatch.setenv("ORION_KMER_THREADS", threads)
+    monkeypatch.setattr(host, "CHUNK_BYTES", 1 << 15)
+    ids, lens, hits = engine.query_hits(db, path, k, cuda)
+    want = [int(np.isin(codec.extract_kmers_np(codec.seq_to_codes(s.encode(), normalize=False), k), db).sum())
+            for s in reads]
+    assert ids == [b"q%d" % i for i in range(len(reads))] and lens == [len(s) for s in reads]
+    assert hits.tolist() == want and want[-2:] == [9, 2]
+    cpu = engine.query_hits(db, path, k, torch.device("cpu"))
+    assert cpu[0] == ids and np.array_equal(cpu[2], hits)
+    expect = [b"q%d" % i for i, (s, h) in enumerate(zip(reads, want)) if h >= 5 and len(s) >= k]
+    assert engine.query_file(db, path, k, 5, cuda) == expect

@@ -2,11 +2,15 @@
 """Wall time of the port's CLI in two checkouts, in alternating pairs on one card.
 
     python3 tools/torch_cli_ab.py --parent DIR [--change DIR] [--pairs N] [--gbp G] [--threads T]
+                                  [--commands count,sketch,query]
 
-Makes the E. coli-like reads of ``chip_smoke.py`` phase 5 once, then runs
-`count -k 31 -m 2 --histogram` and `sketch -k 31 --scaled 1000` of them as
-`python -m orion_kmer_tpu_torch` subprocesses from the parent's checkout
-and from the change's (default: this one), with ORION_KMER_SHARDS=0: one
+Makes the E. coli-like reads of ``chip_smoke.py`` phase 5 once, and the
+DB of phase 6 (``build -k 31`` of its three references, the first the
+reads' genome, built once by the change), then runs `count -k 31 -m 2
+--histogram`, `sketch -k 31 --scaled 1000` and `query -c 10` of the reads
+against that DB as `python -m orion_kmer_tpu_torch` subprocesses from the
+parent's checkout and from the change's (default: this one), with
+ORION_KMER_SHARDS=0: one
 untimed run each (it builds that checkout's kernels), then N pairs,
 alternating which side runs first, each with `-t T` (default 0: every
 core).  The wall is the subprocess's, process
@@ -51,6 +55,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gbp", type=float, default=0.5, help="Gbp of reads")
     ap.add_argument("--threads", type=int, default=0, help="-t of every command (0: every core)")
+    ap.add_argument("--commands", default="count,sketch,query", help="which commands to time, in order")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -67,14 +72,21 @@ def main() -> int:
     work.mkdir(parents=True)
     try:
         fq = work / "reads.fastq"
-        chip_smoke.write_reads_fastq(np, fq, np.random.default_rng(args.seed), args.gbp)
+        rng = np.random.default_rng(args.seed)
+        _, _, genome, _ = chip_smoke.write_reads_fastq(np, fq, rng, args.gbp)
+        db = work / "refs.db"
+        if "query" in args.commands:
+            refs = chip_smoke.write_references(np, work, rng, genome)
+            run(roots["change"], ["build", "-k", 31, "-g", *(path for path, _ in refs.values()), "-o", db])
         commands = {
             "count": lambda side: ["-t", args.threads, "count", "-k", 31, "-m", 2, "--histogram", work / f"{side}.hist",
                                    "-i", fq, "-o", work / f"{side}.tsv"],
             "sketch": lambda side: ["-t", args.threads, "sketch", "-k", 31, "--scaled", 1000, "-i", fq, "-o", work / f"{side}.sig"],
+            "query": lambda side: ["-t", args.threads, "query", "-d", db, "-r", fq, "-c", 10, "-o", work / f"{side}.ids"],
         }
-        outputs = {"count": (".tsv", ".hist"), "sketch": (".sig",)}
-        for name, argv in commands.items():
+        outputs = {"count": (".tsv", ".hist"), "sketch": (".sig",), "query": (".ids",)}
+        for name in args.commands.split(","):
+            argv = commands[name]
             walls = {"parent": [], "change": []}
             for side, root in roots.items():
                 run(root, argv(side))  # untimed: builds this checkout's kernels

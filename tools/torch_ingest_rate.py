@@ -19,7 +19,13 @@ of the checkout at ``--root`` (default: this one):
 - stage: ``engine.staged_batches`` drained on the card (the host stage
   and the copies, no device work), where a card is visible;
 - count: ``engine.count_file`` on the card, wall, and the time its
-  consumer waited for the next staged batch, where a card is visible.
+  consumer waited for the next staged batch, where a card is visible;
+- query: ``chip_smoke.query_split`` on the card, `query -c 10` of the
+  reads against the DB of ``chip_smoke.py`` phase 6 (its three
+  references): the parse of the raw reads, the parse and the cut, the
+  whole host stage to the card, ``engine.query_file`` with its consumer's
+  waits, and the device time (a checkout without the staged query: the
+  parse, the wall and the device time).
 
 Then, on the card, the tail of `count -m 2 --histogram` after
 ``count_file``: the histogram, the min-count filter and the TSV, each
@@ -50,12 +56,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     root = Path(args.root).resolve()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke  # this checkout's, whichever root is measured
+
     sys.path.insert(0, str(root))
-    sys.path.insert(1, str(HERE))
     import numpy as np
 
-    import chip_smoke
-    from orion_kmer_tpu_torch import host
+    from orion_kmer_tpu_torch import codec, host
     from orion_kmer_tpu_torch.ingest import native
 
     assert Path(host.__file__).resolve().is_relative_to(root), host.__file__
@@ -63,8 +70,14 @@ def main() -> int:
     work = HERE / "build" / "ingest_rate"
     work.mkdir(parents=True, exist_ok=True)
     fq = work / f"reads_{args.gbp}_{args.seed}.fastq"
-    if not fq.exists():
-        chip_smoke.write_reads_fastq(np, fq, np.random.default_rng(args.seed), args.gbp)
+    db_path = fq.with_suffix(".db.npy")  # the DB's sorted unique 31-mers
+    if not (fq.exists() and db_path.exists()):
+        rng = np.random.default_rng(args.seed)
+        _, _, genome, _ = chip_smoke.write_reads_fastq(np, fq, rng, args.gbp)
+        refs = chip_smoke.write_references(np, work, rng, genome)
+        kmers = np.concatenate([codec.extract_kmers_np(g, 31) for _, g in refs.values()])
+        np.save(db_path, chip_smoke.sorted_unique(np, kmers))
+    db_vals = np.load(db_path)
     print(json.dumps({"root": str(root), "bytes": fq.stat().st_size, "os.cpu_count": os.cpu_count(),
                       "sched_getaffinity": len(os.sched_getaffinity(0)),
                       "max_parse_threads": getattr(host, "MAX_PARSE_THREADS", None)}), flush=True)
@@ -78,6 +91,7 @@ def main() -> int:
 
             print(json.dumps({"card": chip_smoke.gpu_name_and_limit()}), flush=True)
             engine.count_file(fq, 31, "cuda")  # warm-up: kernel build and load, the CUDA context
+            engine.query_file(db_vals, fq, 31, 10, "cuda")
     except ImportError:
         pass
     chunk = getattr(host, "CHUNK_BYTES", 64 << 20)
@@ -112,7 +126,6 @@ def main() -> int:
                     return
                 yield item
 
-        engine._prefetch = waited
     for t in [int(x) for x in args.threads.split(",")]:
         os.environ["ORION_KMER_THREADS"] = str(t)
         row = {"threads": t}
@@ -142,11 +155,14 @@ def main() -> int:
             torch.cuda.synchronize()
             row["stage_s"] = time.monotonic() - t0
             waits.clear()
+            engine._prefetch = waited
             t0 = time.monotonic()
             engine.count_file(fq, 31, "cuda")
             torch.cuda.synchronize()
             row["count_file_s"] = time.monotonic() - t0
+            engine._prefetch = real_prefetch
             row["count_file_wait_s"] = sum(waits)
+            row["query"] = chip_smoke.query_split(torch, engine, host, fq, db_vals, 31, torch.device("cuda"))
         print(json.dumps(row), flush=True)
     if cuda:
         # the tail of `count -m 2 --histogram` after count_file: histogram, filter, TSV
