@@ -55,7 +55,10 @@ Phases, in order; any failure raises and exits non-zero:
      the device busy share of the default's run (torch.profiler), and the
      CLI `count` in a fresh process at -t 1 and -t 0 with its wall and
      peak RSS (sampled every 10 ms), both outputs byte-equal to the
-     oracle;
+     oracle; then the CLI's cold start stage by stage, each rung of
+     tools/torch_startup.py's ladder once in a fresh process (one
+     `startup: {...}` line: every rung's wall, each stage's cost, the
+     exits, and `serve --warm-k 31`'s ready time);
   6. realistic joins, in process, counters reset before each command:
      `build -k 31` of three references (the phase-5 genome, a copy with
      1 % substitutions, an unrelated 5 Mbp genome), `query -c 10` and
@@ -1393,6 +1396,18 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         "cli_fresh_s": {"t1": fresh[1][0], "t0": fresh[0][0]},
         "cli_peak_rss_bytes": {"t1": fresh[1][1], "t0": fresh[0][1]},
         "in_process_cli_s": wall, "device_s": device_s, "busy_share": busy,
+    }))
+
+    # the CLI's cold start, stage by stage: each rung of
+    # tools/torch_startup.py's ladder once, in a fresh process
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_startup
+
+    t0 = time.monotonic()
+    rows = torch_startup.ladder([ROOT], fq, work, 1, ["count", "serve"])[str(ROOT)]
+    log("startup: " + json.dumps({
+        "card": gpu_name_and_limit(), "reps": 1, "rungs": torch_startup.medians(rows),
+        "stage_costs_s": torch_startup.differences(rows), "ladder_s": time.monotonic() - t0,
     }))
     return launches, fq, out, n_reads, n_windows, genome, read_sample
 

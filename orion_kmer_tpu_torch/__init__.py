@@ -6,8 +6,9 @@ set joins (``compare``, ``query``, ``classify``), FracMinHash sketches
 (``sketch``, ``sketch-compare``), multi-sample profiles (``profile``),
 the resident server (``serve``, ``--server``) and the cohort metadata
 tools (``cohort``), with the same outputs, byte for byte, as the JAX
-package, which stays beside it as the reference.  Counting spread over
-several devices is not ported yet.
+package, which stays beside it as the reference; ``count`` and
+``build`` also spread over several devices and processes
+(``parallel/``).
 
 Layer map (bottom-up), each module named after its JAX counterpart:
   errors, version, codec, db, ingest, utils, cohort

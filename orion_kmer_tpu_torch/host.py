@@ -485,7 +485,8 @@ def _parallel_chunks(f, src, k, normalize, chunk_bytes, threads, stats):
     jobs: "queue.Queue" = queue.Queue(maxsize=threads)
     stop = threading.Event()
     reader = threading.Thread(
-        target=_read_ahead, args=(f, src, chunk_bytes, parse, pool, buffers, jobs, stop, stats), daemon=True
+        target=_read_ahead, args=(f, src, chunk_bytes, parse, pool, buffers, jobs, stop, stats),
+        name="okt-read", daemon=True,
     )
     reader.start()
     cut, seen = 0, False
@@ -875,7 +876,7 @@ def _prefetch(iterator, depth: int | None = None):
                 close()
             _put(q, _END, stop)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, name="okt-prefetch", daemon=True)
     t.start()
     try:
         while True:
