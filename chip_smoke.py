@@ -48,17 +48,24 @@ Phases, in order; any failure raises and exits non-zero:
      E. coli-like FASTQ (a 4.64 Mbp genome, 150 bp reads, 0.2 %
      substitutions, a few N runs; --gbp of sequence), in process, with the
      kernel launch counters reset just before it; its TSV and histogram
-     byte-equal to the numpy oracle (oracle_reads_counts).  Beside it the
+     byte-equal to the numpy oracle (oracle_reads_counts), its table
+     fetched by engine.fetch_table from the card and its tail written by
+     the one native pass (native.render_counts), neither np.unique's
+     histogram nor the host's sign flip taken; the same command at -m 1
+     and at -m above the largest count, at -t 1 and at the default, each
+     against the oracle; one `tail: {...}` line (the fetch of the table
+     from the card, and at -t 1 and the default the fused pass alone, the
+     histogram's lines and the whole write, in seconds).  Beside it the
      host stage: the host's core counts, the parse's positions/s at 1, 2,
      4, 8 and 16 parser threads and at the default -t, the warm
      engine.count_file wall at -t 1 and at the default (equal results),
      the device busy share of the default's run (torch.profiler), and the
      CLI `count` in a fresh process at -t 1 and -t 0 with its wall and
      peak RSS (sampled every 10 ms), both outputs byte-equal to the
-     oracle; then the CLI's cold start stage by stage, each rung of
-     tools/torch_startup.py's ladder once in a fresh process (one
-     `startup: {...}` line: every rung's wall, each stage's cost, the
-     exits, and `serve --warm-k 31`'s ready time);
+     oracle; then the CLI's cold start stage by stage: rungs 0, 2, 8, 9
+     and 10 (`count` only) of tools/torch_startup.py's ladder once each in
+     a fresh process (one `startup: {...}` line: every rung's wall, each
+     stage's cost, the exits);
   6. realistic joins, in process, counters reset before each command:
      `build -k 31` of three references (the phase-5 genome, a copy with
      1 % substitutions, an unrelated 5 Mbp genome), `query -c 10` and
@@ -1302,6 +1309,65 @@ def cli_subprocess(argv, log_path: Path):
     return wall, int(peak_path.read_text()) or None  # None: /proc/self/statm could not be read
 
 
+def tsv_matches(np, path: Path, vals, counts, k: int, rows: int = 1 << 21) -> bool:
+    """Whether the file at ``path`` is render_tsv of (vals, counts),
+    compared a slice of ``rows`` rows at a time (the whole oracle of a
+    large table would not fit in memory at once)."""
+    with open(path, "rb") as f:
+        for lo in range(0, vals.shape[0], rows):
+            want = render_tsv(np, vals[lo : lo + rows], counts[lo : lo + rows], k)
+            if f.read(len(want)) != want:
+                return False
+        return f.read(1) == b""
+
+
+def tail_split(np, torch, dev, vals, counts, work: Path, thread_counts) -> dict:
+    """The tail of `count -k 31 -m 2 --histogram` after its table, in
+    seconds: the table's fetch from the card (``engine.fetch_table`` of
+    the table put back on ``dev``; cold, then warm), then at each -t of ``thread_counts``
+    the fused pass alone (``native.render_counts`` of the TSV into no
+    file, with the histogram), the histogram's lines and the whole write
+    of both files (``commands.count.write_counts_tsv``)."""
+    from orion_kmer_tpu_torch import engine
+    from orion_kmer_tpu_torch.commands import count as count_cmd
+    from orion_kmer_tpu_torch.ingest import native
+    from orion_kmer_tpu_torch.keys import keys_from_u64
+
+    keys, cnt = keys_from_u64(vals).to(dev), torch.from_numpy(counts).to(dev)
+    # cold: torch's cache of pinned host memory emptied first, as a fresh
+    # CLI process has it (where this torch can empty it); warm: cached
+    empty_host_cache = (getattr(torch._C, "_host_emptyCache", None)
+                        or getattr(torch._C, "_accelerator_emptyHostCache", None))
+    out = {"rows": int(vals.shape[0]), "host_cache_emptied": empty_host_cache is not None and dev.type == "cuda",
+           "fetch_s": {}, "threads": {}}
+    for name in ("cold", "warm"):
+        if name == "cold" and out["host_cache_emptied"]:
+            empty_host_cache()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = engine.fetch_table(keys, cnt)
+        out["fetch_s"][name] = time.monotonic() - t0
+        check(np.array_equal(got[0], vals) and np.array_equal(got[1], counts), "fetch_table == the table")
+        del got
+    del keys, cnt
+    for t in thread_counts:
+        os.environ["ORION_KMER_THREADS"] = str(t)
+        row = {}
+        t0 = time.monotonic()
+        hist = native.render_counts(lambda b: None, vals, counts, 31, 2, True, t)
+        row["fused_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        with open(work / "tail_lines.hist", "w") as f:
+            count_cmd._write_histogram_rows(f, *hist)
+        row["histogram_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        count_cmd.write_counts_tsv(work / "tail.tsv", vals, counts, 31, 2, work / "tail.hist")
+        row["write_s"] = time.monotonic() - t0
+        out["threads"][t] = row
+    (work / "tail.tsv").unlink()
+    return out
+
+
 def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     """Phase 5: the main path, `count -k 31 -m 2 --histogram` of the
     E. coli-like reads, its TSV and histogram byte-equal to the numpy
@@ -1356,15 +1422,43 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         f"default's wall; card: {gpu_name_and_limit()}")
 
     out, hist = work / "reads.tsv", work / "reads.hist"
+    # the card's tail: the fetch and the fused pass counted, the plain
+    # paths (the host's sign flip, np.unique's histogram) made to fail
+    from orion_kmer_tpu_torch.commands import count as count_cmd
+    from orion_kmer_tpu_torch.ingest import native
+
+    calls = {"fetch_table": [], "render_counts": []}
+    real = {"fetch_table": engine.fetch_table, "render_counts": native.render_counts,
+            "u64_from_keys": engine.u64_from_keys, "write_histogram": count_cmd.write_histogram}
+
+    def counted(name):
+        def call(*a):
+            calls[name].append(a)
+            return real[name](*a)
+        return call
+
+    def refused(*a, **kw):
+        raise AssertionError("the count's tail took a plain path on the card")
+
+    engine.fetch_table, native.render_counts = counted("fetch_table"), counted("render_counts")
+    engine.u64_from_keys = count_cmd.write_histogram = refused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
     t0 = time.monotonic()
-    rc = cli.main(["count", "-k", "31", "-m", "2", "--histogram", str(hist), "-i", str(fq), "-o", str(out)])
-    torch.cuda.synchronize()
+    try:
+        rc = cli.main(["count", "-k", "31", "-m", "2", "--histogram", str(hist), "-i", str(fq), "-o", str(out)])
+        torch.cuda.synchronize()
+    finally:
+        engine.fetch_table, native.render_counts = real["fetch_table"], real["render_counts"]
+        engine.u64_from_keys, count_cmd.write_histogram = real["u64_from_keys"], real["write_histogram"]
     wall = time.monotonic() - t0
     launches = read_counters()
     check(rc == 0, "count exit code")
+    check(len(calls["fetch_table"]) >= 1 and all(a[0].device.type == "cuda" for a in calls["fetch_table"]),
+          "the count's table fetched from the card by engine.fetch_table")
+    check(len(calls["render_counts"]) == 1 and calls["render_counts"][0][4:6] == (2, True),
+          "the count's tail written by one native pass (-m 2, with the histogram)")
     peak = torch.cuda.max_memory_allocated(dev)
     check(out.read_bytes() == want_tsv, "count TSV == oracle bytes")
     check(hist.read_bytes() == want_hist, "count histogram == oracle bytes")
@@ -1378,6 +1472,31 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         check(launches[name] > 0, f"{name} launched in the main path")
     for caller in ("forest", "fold"):
         check(launches["K2 callers"].get(caller, 0) > 0, f"K2 launched by the {caller} in the main path")
+
+    # -m 1 (every row) and -m above the largest count (no row), at -t 1
+    # and at the default: the same histogram; the TSVs against the oracle
+    top = int(oc.max()) + 1
+    first = {}
+    for m, t in ((1, 1), (1, os.cpu_count()), (top, 1), (top, os.cpu_count())):
+        o, hh = work / f"m{m}_t{t}.tsv", work / f"m{m}_t{t}.hist"
+        check(cli.main(["-t", str(t), "count", "-k", "31", "-m", str(m), "--histogram", str(hh),
+                        "-i", str(fq), "-o", str(o)]) == 0, f"count -m {m} -t {t} exit code")
+        check(hh.read_bytes() == want_hist, f"count -m {m} -t {t}: histogram == oracle bytes")
+        if m == top:
+            check(o.stat().st_size == 0, f"count -m {m} -t {t}: no row")
+        elif m in first:
+            check(o.read_bytes() == first[m].read_bytes(), f"count -m {m} -t {t}: TSV == at -t 1")
+        else:
+            check(tsv_matches(np, o, ov, oc, 31), f"count -m {m} -t {t}: TSV == oracle bytes")
+            first[m] = o
+    for o in work.glob("m*_t*.tsv"):
+        o.unlink()
+    os.environ["ORION_KMER_THREADS"] = str(os.cpu_count())
+    log(f"count at -m 1 ({ov.shape[0]} rows) and -m {top} (none), at -t 1 and -t {os.cpu_count()}: "
+        "TSVs and histograms == oracle bytes")
+    split = tail_split(np, torch, dev, ov, oc, work, (1, os.cpu_count()))
+    os.environ["ORION_KMER_THREADS"] = str(os.cpu_count())
+    log("tail: " + json.dumps({"card": gpu_name_and_limit(), **split}))
 
     fresh = {}
     for t in (1, 0):
@@ -1398,13 +1517,13 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         "in_process_cli_s": wall, "device_s": device_s, "busy_share": busy,
     }))
 
-    # the CLI's cold start, stage by stage: each rung of
-    # tools/torch_startup.py's ladder once, in a fresh process
+    # the CLI's cold start, stage by stage: rungs 0, 2, 8, 9 and 10 of
+    # tools/torch_startup.py's ladder once each, in a fresh process
     sys.path.insert(0, str(ROOT / "tools"))
     import torch_startup
 
     t0 = time.monotonic()
-    rows = torch_startup.ladder([ROOT], fq, work, 1, ["count", "serve"])[str(ROOT)]
+    rows = torch_startup.ladder([ROOT], fq, work, 1, ["count"], only={"0", "2", "8", "9", "10"})[str(ROOT)]
     log("startup: " + json.dumps({
         "card": gpu_name_and_limit(), "reps": 1, "rungs": torch_startup.medians(rows),
         "stage_costs_s": torch_startup.differences(rows), "ladder_s": time.monotonic() - t0,

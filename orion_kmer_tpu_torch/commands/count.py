@@ -8,6 +8,7 @@ sorted ascending by the encoded u64 (== lexicographic string order).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -21,34 +22,50 @@ from ..ingest import native
 from ..ingest.compress import TextOut
 from ..ingest.fastx import FastxParseError
 from ..utils import track_progress_and_resources
+from ..utils.progress import worker_threads
 
 logger = logging.getLogger("orion_kmer_tpu_torch.count")
 
 
-def write_counts_tsv(path, vals: np.ndarray, counts: np.ndarray, k: int) -> None:
-    """Write sorted ``kmer\\tcount`` lines (count.rs:127-135): the native
-    renderer when available, chunked so the buffer stays bounded."""
-    with TextOut(path) as f:
-        if native.available():
-            f.flush()  # nothing buffered yet; keep text/binary ordering safe
-            chunk = 1 << 21
-            buf = np.empty(min(chunk, max(vals.shape[0], 1)) * (k + 22), np.uint8)
-            native._advise_hugepages(buf)  # one buffer, faulted once
+def write_counts_tsv(path, vals: np.ndarray, counts: np.ndarray, k: int,
+                     min_count: int | None = None, histogram=None) -> None:
+    """Write sorted ``kmer\\tcount`` lines (count.rs:127-135) of the rows
+    with count >= ``min_count`` (every row when None) to ``path`` and,
+    when ``histogram`` names a file, ``write_histogram``'s lines of every
+    row's count there.
+
+    Natively, the filter, the histogram and the render are one pass
+    (``native.render_counts``) spread over -t threads (ORION_KMER_THREADS);
+    else the numpy filter, ``write_histogram`` and the codec's render.
+    The histogram stays whole, as it is written before the filter, when
+    the TSV fails."""
+    if not native.available():
+        if histogram is not None:
+            write_histogram(histogram, counts)
+        if min_count is not None:
+            keep = counts >= min_count
+            vals, counts = vals[keep], counts[keep]
+        with TextOut(path) as f:
+            chunk = 1 << 16
             for start in range(0, vals.shape[0], chunk):
-                f.buffer.write(
-                    native.counts_tsv_bytes(
-                        vals[start : start + chunk],
-                        counts[start : start + chunk],
-                        k,
-                        out=buf,
-                    )
+                seqs = codec.u64s_to_seqs(vals[start : start + chunk], k)
+                cnts = counts[start : start + chunk].tolist()
+                f.write("".join(f"{s.decode('ascii')}\t{c}\n" for s, c in zip(seqs, cnts)))
+        return
+    with contextlib.ExitStack() as stack:
+        hist_out = None if histogram is None else stack.enter_context(TextOut(histogram))
+        try:
+            with TextOut(path) as f:
+                f.flush()  # nothing buffered yet; keep text/binary ordering safe
+                rows = native.render_counts(
+                    f.buffer.write, vals, counts, k, min_count, hist_out is not None, worker_threads()
                 )
-            return
-        chunk = 1 << 16
-        for start in range(0, vals.shape[0], chunk):
-            seqs = codec.u64s_to_seqs(vals[start : start + chunk], k)
-            cnts = counts[start : start + chunk].tolist()
-            f.write("".join(f"{s.decode('ascii')}\t{c}\n" for s, c in zip(seqs, cnts)))
+        except (ContextError, OSError):
+            if hist_out is not None:
+                _write_histogram_rows(hist_out, *np.unique(counts, return_counts=True))
+            raise
+        if hist_out is not None:
+            _write_histogram_rows(hist_out, *rows)
 
 
 def _load_checkpoint(path, k):
@@ -86,9 +103,11 @@ def write_histogram(path, counts: np.ndarray) -> None:
     filter)."""
     with TextOut(path) as f:
         if counts.shape[0]:
-            multiplicities, freq = np.unique(counts, return_counts=True)
-            for m, c in zip(multiplicities.tolist(), freq.tolist()):
-                f.write(f"{m}\t{c}\n")
+            _write_histogram_rows(f, *np.unique(counts, return_counts=True))
+
+
+def _write_histogram_rows(f, multiplicities: np.ndarray, freq: np.ndarray) -> None:
+    f.write("".join(f"{m}\t{c}\n" for m, c in zip(multiplicities.tolist(), freq.tolist())))
 
 
 def run_count(args, device) -> None:
@@ -124,7 +143,7 @@ def run_count(args, device) -> None:
                 raise ContextError(
                     f"Failed to open or parse file: {input_path}", e
                 ) from e
-            acc.add(vals, cnt.astype("int64"))
+            acc.add(vals, cnt.astype(np.int64, copy=False))
             files_done.add(str(input_path))
             if ckpt_path:
                 # the merged table doubles as the resumable checkpoint
@@ -139,12 +158,5 @@ def run_count(args, device) -> None:
     )
 
     vals, counts = acc.result()
-
-    if getattr(args, "histogram", None):
-        write_histogram(args.histogram, counts)
-    keep = counts >= args.min_count
-    vals, counts = vals[keep], counts[keep]
-    logger.info(
-        "Writing %d k-mers (count >= %d) to output file...", vals.shape[0], args.min_count
-    )
-    write_counts_tsv(args.output_file, vals, counts, k)
+    logger.info("Writing k-mers with count >= %d to output file...", args.min_count)
+    write_counts_tsv(args.output_file, vals, counts, k, args.min_count, getattr(args, "histogram", None))

@@ -58,7 +58,7 @@ def profile_sample(
     acc = CountAccumulator()
     for f in files:
         vals, cnt = count_file(f, k, device)
-        acc.add(vals, cnt.astype(np.int64))
+        acc.add(vals, cnt.astype(np.int64, copy=False))
     vals, counts = acc.result()
     result = {
         "total_kmers": int(counts.sum()),

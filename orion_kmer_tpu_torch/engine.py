@@ -55,6 +55,8 @@ from .ops.extract import extract_keys
 
 logger = logging.getLogger("orion_kmer_tpu_torch.engine")
 
+_SIGN_BIT = -(1 << 63)  # the flip of ``keys``' int64 order to u64 order
+
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A u32 wire array as an int32 tensor on ``device``: pinned and
@@ -63,6 +65,26 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def fetch_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """A count table's (flipped int64 keys, int64 counts) tensors -> (u64
+    values, int64 counts) on the host.
+
+    On a card the sign bit is flipped there, and both planes are copied
+    without blocking into pinned host memory, in flight at once, with one
+    synchronisation; the arrays returned own that memory.  A CPU tensor
+    takes the plain path: ``u64_from_keys`` and the counts' own memory."""
+    if keys.device.type == "cpu":
+        return u64_from_keys(keys), counts.numpy()
+    if keys.device.type != "cuda":
+        raise ValueError(f"fetch_table: tensors on {keys.device}, not cpu or cuda")
+    host_keys = torch.empty(keys.shape, dtype=torch.int64, pin_memory=True)
+    host_counts = torch.empty(counts.shape, dtype=torch.int64, pin_memory=True)
+    host_keys.copy_(keys ^ _SIGN_BIT, non_blocking=True)
+    host_counts.copy_(counts, non_blocking=True)
+    torch.cuda.current_stream(keys.device).synchronize()
+    return host_keys.numpy().view(np.uint64), host_counts.numpy()
 
 
 class DeviceCountTable:
@@ -153,7 +175,7 @@ class DeviceCountTable:
         self.stats["spills"] += 1
         self.stats["host_link_bytes"] += 16 * keys.shape[0]
         if keys.shape[0]:
-            self._acc.add(u64_from_keys(keys), counts.cpu().numpy())
+            self._acc.add(*fetch_table(keys, counts))
         self._table = None
 
     def flush(self):

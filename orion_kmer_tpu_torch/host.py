@@ -822,7 +822,7 @@ class CountAccumulator:
     def add(self, vals: np.ndarray, counts: np.ndarray) -> None:
         if vals.shape[0]:
             self._vals.append(vals)
-            self._counts.append(counts.astype(np.int64))
+            self._counts.append(counts.astype(np.int64, copy=False))
             self._total += vals.shape[0]
             if self._total > self._threshold:
                 self._consolidate()

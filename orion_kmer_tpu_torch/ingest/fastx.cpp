@@ -451,4 +451,69 @@ long okt_write_counts_tsv(const uint64_t* vals, const int64_t* counts, long n,
     return o;
 }
 
+// The fused tail of `count`: over one chunk of sorted (vals u64, counts
+// i64) rows, render the rows whose count is >= min_count as
+// "KMER\tCOUNT\n" lines (count.rs:127-135; byte-identical to the Python
+// codec.u64s_to_seqs + f-string path), and, when hist is not null, add
+// every row's count, kept or not, into hist[count] for 1 <= count <=
+// hist_cap: `count --histogram` is taken over all rows, before the
+// filter.  Counts outside [1, hist_cap] are left to the caller, which
+// finds them in the chunk; their number goes to *n_outside.  With out
+// null nothing is rendered.  Returns bytes written, OKT_CAPACITY if out
+// is too small, or OKT_BADCOUNT on a kept row whose count is <= 0:
+// pipeline counts are >= 1 by construction, so a non-positive value is
+// table corruption and must fail loudly rather than be serialized as a
+// fabricated line.  Chunks are independent, so callers render several
+// at once on threads (ctypes releases the GIL around the call).
+long okt_render_counts(const uint64_t* vals, const int64_t* counts, long n,
+                       int k, int64_t min_count, uint8_t* out, long cap,
+                       int64_t* hist, long hist_cap, long* n_outside) {
+    // four bases a byte of the value, most significant first
+    static const struct Quads {
+        uint32_t q[256];
+        Quads() {
+            static const char BASES[4] = {'A', 'C', 'G', 'T'};
+            for (int b = 0; b < 256; ++b) {
+                char s[4] = {BASES[(b >> 6) & 3], BASES[(b >> 4) & 3],
+                             BASES[(b >> 2) & 3], BASES[b & 3]};
+                std::memcpy(&q[b], s, 4);
+            }
+        }
+    } quads;
+    static const char BASES[4] = {'A', 'C', 'G', 'T'};
+    long o = 0, outside = 0;
+    for (long i = 0; i < n; ++i) {
+        int64_t c = counts[i];
+        if (hist != nullptr) {
+            if (c >= 1 && c <= hist_cap) ++hist[c];
+            else ++outside;
+        }
+        if (out == nullptr || c < min_count) continue;
+        if (c <= 0) return OKT_BADCOUNT;
+        if (o + k + 22 > cap) return OKT_CAPACITY;
+        uint64_t v = vals[i];
+        int j = k;
+        for (; j >= 4; j -= 4) {
+            std::memcpy(out + o + j - 4, &quads.q[v & 255], 4);
+            v >>= 8;
+        }
+        for (; j > 0; --j) {
+            out[o + j - 1] = BASES[v & 3];
+            v >>= 2;
+        }
+        o += k;
+        out[o++] = '\t';
+        char tmp[20];
+        int t = 0;
+        while (c > 0) {
+            tmp[t++] = (char)('0' + (c % 10));
+            c /= 10;
+        }
+        while (t > 0) out[o++] = tmp[--t];
+        out[o++] = '\n';
+    }
+    if (n_outside != nullptr) *n_outside = outside;
+    return o;
+}
+
 }  // extern "C"

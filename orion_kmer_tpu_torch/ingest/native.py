@@ -136,6 +136,19 @@ def _load():
                 ctypes.c_void_p,  # out
                 ctypes.c_long,  # cap
             ]
+            lib.okt_render_counts.restype = ctypes.c_long
+            lib.okt_render_counts.argtypes = [
+                ctypes.c_void_p,  # vals
+                ctypes.c_void_p,  # counts
+                ctypes.c_long,  # n
+                ctypes.c_int,  # k
+                ctypes.c_int64,  # min_count
+                ctypes.c_void_p,  # out (null: no render)
+                ctypes.c_long,  # cap
+                ctypes.c_void_p,  # hist (null: no histogram)
+                ctypes.c_long,  # hist_cap
+                ctypes.c_void_p,  # n_outside (long*)
+            ]
             lib.okt_pack_wire_multi.restype = ctypes.c_long
             lib.okt_pack_wire_multi.argtypes = [
                 ctypes.c_void_p,  # codes
@@ -437,6 +450,108 @@ def counts_tsv_bytes(
     if m < 0:
         raise NativeParseError(int(m), "<counts_tsv>")
     return memoryview(out.data)[: int(m)]
+
+
+# The fused tail of `count` (``render_counts``).  Its histogram is dense
+# for multiplicities 1..HIST_CAP, and counts outside that go through
+# np.unique: high-coverage inputs do hold k-mers counted more often.  A
+# chunk of RENDER_ROWS rows renders into a buffer of RENDER_ROWS * (k +
+# 22) bytes (13.9 MB at k = 31), and at most one chunk more than there
+# are render threads is alive: 9 at MAX_RENDER_THREADS, ~125 MB, about
+# the one 2^21-row buffer (111 MB) of the serial render before it.
+HIST_CAP = 1 << 16
+RENDER_ROWS = 1 << 18
+MAX_RENDER_THREADS = 8
+_INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def render_counts(write, vals, counts, k: int, min_count: int | None = None,
+                  histogram: bool = False, threads: int = 1):
+    """`count`'s tail in one native pass over sorted (vals u64, counts
+    i64) rows, with the bytes and rows of the numpy filter, ``np.unique``
+    and ``counts_tsv_bytes``: the `KMER\\tCOUNT\\n` lines of the rows with
+    count >= ``min_count`` (every row when None) go to ``write`` in row
+    order, and with ``histogram`` the histogram of every row's count,
+    taken before the filter, is returned as (multiplicities ascending,
+    rows counted that many times), two int64 arrays (else None).
+    ``write`` gets a view of a buffer that is rendered into again once it
+    returns, as a file's write allows.
+
+    Chunks of RENDER_ROWS rows render on ``threads`` threads (at most
+    MAX_RENDER_THREADS; one: inline) while the chunks before them are
+    written, strictly in order.  A buffer is written before it is
+    rendered into again, and holds its own histogram.  A kept
+    count <= 0 raises NativeParseError (OKT_BADCOUNT) before its chunk
+    is written."""
+    lib = _load()
+    assert lib is not None, "native ingest not available"
+    vals = np.ascontiguousarray(vals, dtype=np.uint64)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    n = vals.shape[0]
+    if counts.shape != (n,):
+        raise ValueError(f"render_counts: {n} values but counts of shape {counts.shape}")
+    render = min_count is None or min_count <= _INT64_MAX
+    keep_from = _INT64_MIN if min_count is None else min(max(min_count, _INT64_MIN), _INT64_MAX)
+    rows = min(RENDER_ROWS, max(n, 1))
+    threads = max(1, min(threads, MAX_RENDER_THREADS, -(-n // rows)))
+    slots = []
+    for _ in range(threads + 1 if threads > 1 else 1):
+        buf = np.empty(rows * (k + 22) if render else 0, np.uint8)
+        _advise_hugepages(buf)
+        slots.append((buf, np.zeros(HIST_CAP + 1 if histogram else 0, np.int64), np.zeros(1, np.int64)))
+    outside = []
+
+    def run(slot, lo: int, hi: int) -> int:
+        buf, hist, n_outside = slot
+        return lib.okt_render_counts(
+            vals.ctypes.data + 8 * lo, counts.ctypes.data + 8 * lo, hi - lo, k, keep_from,
+            buf.ctypes.data if render else None, buf.shape[0],
+            hist.ctypes.data if histogram else None, HIST_CAP, n_outside.ctypes.data,
+        )
+
+    def finish(m: int, slot, lo: int, hi: int) -> None:
+        if m < 0:
+            raise NativeParseError(int(m), "<counts_tsv>")
+        if m:
+            write(memoryview(slot[0].data)[:m])
+        if histogram and slot[2][0]:
+            c = counts[lo:hi]
+            outside.append(c[(c < 1) | (c > HIST_CAP)])
+
+    chunks = [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
+    if threads == 1:
+        for lo, hi in chunks:
+            finish(run(slots[0], lo, hi), slots[0], lo, hi)
+    else:
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        free, pending = list(slots), deque()
+        pool = ThreadPoolExecutor(threads, thread_name_prefix="okt-render")
+        try:
+            for lo, hi in chunks:
+                if not free:
+                    fut, slot, a, b = pending.popleft()
+                    finish(fut.result(), slot, a, b)
+                    free.append(slot)
+                slot = free.pop()
+                pending.append((pool.submit(run, slot, lo, hi), slot, lo, hi))
+            while pending:
+                fut, slot, a, b = pending.popleft()
+                finish(fut.result(), slot, a, b)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+    if not histogram:
+        return None
+    dense = sum(hist for _, hist, _ in slots)
+    mult = np.flatnonzero(dense)
+    if outside:
+        # counts outside 1..HIST_CAP: below the dense ones or above them
+        om, of = np.unique(np.concatenate(outside), return_counts=True)
+        below = om < 1
+        return (np.concatenate([om[below], mult, om[~below]]),
+                np.concatenate([of[below], dense[mult], of[~below]]))
+    return mult, dense[mult]
 
 
 def pack_wire(codes: np.ndarray, size: int, out=None):

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine import to_device
-from ..keys import u64_from_keys
+from ..engine import fetch_table, to_device
+from ..host import CountAccumulator
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
 from ..ops.extract import extract_keys
@@ -228,8 +228,14 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
         results.append((_to_comm(ukeys, comm), _to_comm(ucnt, comm)))
     all_keys = _all_gather_ragged(torch.cat([u for u, _ in results]), comm)
     all_counts = _all_gather_ragged(torch.cat([c for _, c in results]), comm)
-    vals = u64_from_keys(all_keys)
-    order = np.argsort(vals, kind="stable")
+    # every shard's length, in the same order: the gathered table is S
+    # sorted runs, disjoint by ownership, merged on the host
+    lengths = _all_gather_ragged(torch.tensor([u.shape[0] for u, _ in results], dtype=torch.int64), comm)
+    vals, counts = fetch_table(all_keys, all_counts)
+    acc = CountAccumulator()
+    ends = np.cumsum(lengths.tolist())
+    for lo, hi in zip([0, *ends[:-1]], ends):
+        acc.add(vals[lo:hi], counts[lo:hi])
 
     if stats is not None:
         positions = max(int(codes.shape[0]), 1)
@@ -248,7 +254,7 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
                 "ici_bytes_per_position": round(8 * crossed / positions, 3),
             }
         )
-    return vals[order], all_counts.cpu().numpy()[order]
+    return acc.result()
 
 
 def run_ranks(worker: str, args: list[list[str]], work_dir, timeout: float) -> list[str]:

@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..keys import u64_from_keys
+from ..engine import fetch_table
+from ..host import CountAccumulator
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
 
@@ -101,11 +102,12 @@ def exchange(bufs: list[list[torch.Tensor]], table: np.ndarray, mesh: list[torch
 
 def _assemble(parts: list[tuple[torch.Tensor, torch.Tensor]]):
     """Per-shard (unique keys, counts) -> (vals u64, counts int64), value
-    sorted.  The shards' key sets are disjoint by ownership."""
-    vals = np.concatenate([u64_from_keys(keys) for keys, _ in parts])
-    counts = np.concatenate([cnt.cpu().numpy() for _, cnt in parts])
-    order = np.argsort(vals, kind="stable")
-    return vals[order], counts[order]
+    sorted: each shard fetched (``engine.fetch_table``), then the shards'
+    sorted runs merged, which the ownership keeps disjoint."""
+    acc = CountAccumulator()
+    for keys, cnt in parts:
+        acc.add(*fetch_table(keys, cnt))
+    return acc.result()
 
 
 def sharded_count(codes: np.ndarray, invalid: np.ndarray, k: int, mesh=None):

@@ -366,3 +366,65 @@ def test_query_stream_on_the_card_matches_the_oracle(cuda, tmp_path, monkeypatch
     assert cpu[0] == ids and np.array_equal(cpu[2], hits)
     expect = [b"q%d" % i for i, (s, h) in enumerate(zip(reads, want)) if h >= 5 and len(s) >= k]
     assert engine.query_file(db, path, k, 5, cuda) == expect
+
+
+@pytest.mark.cuda
+def test_fetch_table_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``engine.fetch_table`` (the sign flipped on the card, both planes
+    copied into pinned memory at once) against ``u64_from_keys`` /
+    ``.cpu()``: alone, with the arrays of one fetch kept intact by the
+    next; on a table that spills (``DEVICE_TABLE_MAX`` small); on the
+    sharded table and the one-shot sharded count.  No card path goes
+    through ``u64_from_keys`` or ``Tensor.cpu``."""
+    from orion_kmer_tpu_torch import engine
+    from orion_kmer_tpu_torch.keys import u64_from_keys
+    from orion_kmer_tpu_torch.parallel import ShardedCountTable, make_mesh
+    from orion_kmer_tpu_torch.parallel.sharded import sharded_count
+
+    rng = np.random.default_rng(13)
+    vals = np.sort(rng.choice(1 << 62, size=300_001, replace=False).astype(np.uint64))
+    vals[-1] = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
+    keys = keys_from_u64(vals).to(cuda)
+    counts = torch.from_numpy(rng.integers(1, 1 << 40, size=vals.shape[0])).to(cuda)
+    want = u64_from_keys(keys), counts.cpu().numpy()
+    batches = []
+    for _ in range(8):
+        b = rng.integers(0, 4, size=20_000, dtype=np.uint8)
+        b[rng.random(20_000) < 0.01] = 255
+        batches.append(b)
+    cpu = torch.device("cpu")
+    cpu_table = engine.DeviceCountTable(21, cpu)
+    for b in batches:
+        cpu_table.update(b)
+    want_table = cpu_table.result()
+    want_sharded = sharded_count(batches[0], batches[0] > 3, 21, make_mesh(3, cpu))
+
+    def not_on_the_card(*a, **kw):
+        raise AssertionError("the card's fetch took the plain path")
+
+    monkeypatch.setattr(engine, "u64_from_keys", not_on_the_card)
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "cpu", not_on_the_card)
+        got = engine.fetch_table(keys, counts)
+        other = engine.fetch_table(keys[:1000].flip(0), counts[:1000])
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert np.array_equal(got[0], vals) and got[0].dtype == np.uint64 and got[1].dtype == np.int64
+    assert np.array_equal(other[0], vals[:1000][::-1])
+    empty = engine.fetch_table(keys[:0], counts[:0])
+    assert empty[0].shape == empty[1].shape == (0,)
+
+    monkeypatch.setattr(engine.DeviceCountTable, "DEVICE_TABLE_MAX", 30_000)
+    monkeypatch.setattr(engine.DeviceCountTable, "FLUSH_WINDOWS", 1 << 15)
+    table = engine.DeviceCountTable(21, cuda)
+    for b in batches:
+        table.update(b)
+    got = table.result()
+    assert table.stats["spills"] >= 3
+    assert np.array_equal(got[0], want_table[0]) and np.array_equal(got[1], want_table[1])
+    sharded_table = ShardedCountTable(21, make_mesh(3, cuda))
+    for b in batches:
+        sharded_table.update(b)
+    got = sharded_table.result()
+    assert np.array_equal(got[0], want_table[0]) and np.array_equal(got[1], want_table[1])
+    got = sharded_count(batches[0], batches[0] > 3, 21, make_mesh(3, cuda))
+    assert np.array_equal(got[0], want_sharded[0]) and np.array_equal(got[1], want_sharded[1])

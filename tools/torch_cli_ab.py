@@ -14,8 +14,9 @@ ORION_KMER_SHARDS=0: one
 untimed run each (it builds that checkout's kernels), then N pairs,
 alternating which side runs first, each with `-t T` (default 0: every
 core).  The wall is the subprocess's, process
-start included: what a user of the CLI waits for.  Both sides must write
-the same bytes.  To compare a commit with its parent, unpack the parent
+start included: what a user of the CLI waits for; beside it the process's
+peak RSS, sampled every 10 ms as ``chip_smoke.py`` phase 5 samples it.
+Both sides must write the same bytes.  To compare a commit with its parent, unpack the parent
 with ``git archive`` into a directory that .gitignore lists.  Prints one
 JSON line per command: every wall, the medians, the distance between the
 parent's quartiles, and the pairs each side won.
@@ -36,15 +37,19 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def run(root: Path, argv) -> float:
+def run(root: Path, argv, peak_path: Path) -> tuple[float, int]:
+    """One CLI call in a fresh process from ``root``: (wall s, peak RSS
+    bytes sampled every 10 ms, as ``chip_smoke.py`` phase 5 samples it)."""
+    import chip_smoke
+
     env = dict(os.environ, ORION_KMER_SHARDS="0")
     t0 = time.monotonic()
-    proc = subprocess.run([sys.executable, "-m", "orion_kmer_tpu_torch", *map(str, argv)],
+    proc = subprocess.run([sys.executable, "-c", chip_smoke._CLI_PEAK, str(peak_path), *map(str, argv)],
                           cwd=root, env=env, capture_output=True, text=True, timeout=900)
     wall = time.monotonic() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{root}: {argv} failed: {proc.stderr[-2000:]}")
-    return wall
+    return wall, int(peak_path.read_text())
 
 
 def main() -> int:
@@ -72,12 +77,13 @@ def main() -> int:
     work.mkdir(parents=True)
     try:
         fq = work / "reads.fastq"
+        peak = work / "peak"
         rng = np.random.default_rng(args.seed)
         _, _, genome, _ = chip_smoke.write_reads_fastq(np, fq, rng, args.gbp)
         db = work / "refs.db"
         if "query" in args.commands:
             refs = chip_smoke.write_references(np, work, rng, genome)
-            run(roots["change"], ["build", "-k", 31, "-g", *(path for path, _ in refs.values()), "-o", db])
+            run(roots["change"], ["build", "-k", 31, "-g", *(path for path, _ in refs.values()), "-o", db], peak)
         commands = {
             "count": lambda side: ["-t", args.threads, "count", "-k", 31, "-m", 2, "--histogram", work / f"{side}.hist",
                                    "-i", fq, "-o", work / f"{side}.tsv"],
@@ -88,14 +94,17 @@ def main() -> int:
         for name in args.commands.split(","):
             argv = commands[name]
             walls = {"parent": [], "change": []}
+            rss = {"parent": [], "change": []}
             for side, root in roots.items():
-                run(root, argv(side))  # untimed: builds this checkout's kernels
+                run(root, argv(side), peak)  # untimed: builds this checkout's kernels
             for suffix in outputs[name]:
                 chip_smoke.check((work / f"parent{suffix}").read_bytes() == (work / f"change{suffix}").read_bytes(),
                                  f"{name}: both checkouts write the same {suffix}")
             for pair in range(args.pairs):
                 for side in (("parent", "change") if pair % 2 == 0 else ("change", "parent")):
-                    walls[side].append(run(roots[side], argv(side)))
+                    wall, peak_rss = run(roots[side], argv(side), peak)
+                    walls[side].append(wall)
+                    rss[side].append(peak_rss)
             q = statistics.quantiles(walls["parent"], n=4)
             print(json.dumps({
                 "command": name, "threads": args.threads, "card": card, "pairs": args.pairs,
@@ -105,6 +114,9 @@ def main() -> int:
                 "parent_quartile_distance_s": q[2] - q[0],
                 "pairs_won_by_change": sum(c < p for p, c in zip(walls["parent"], walls["change"])),
                 "pairs_won_by_parent": sum(p < c for p, c in zip(walls["parent"], walls["change"])),
+                "parent_peak_rss_bytes": rss["parent"], "change_peak_rss_bytes": rss["change"],
+                "parent_median_peak_rss_gib": statistics.median(rss["parent"]) / 2**30,
+                "change_median_peak_rss_gib": statistics.median(rss["change"]) / 2**30,
             }), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -28,9 +28,26 @@ of the checkout at ``--root`` (default: this one):
   parse, the wall and the device time).
 
 Then, on the card, the tail of `count -m 2 --histogram` after
-``count_file``: the histogram, the min-count filter and the TSV, each
-timed.  A checkout from before the parser threads parses serially
-whatever T is.  Prints the host's core counts, then one JSON line per T,
+``count_file`` (one `tail` line):
+
+- fetch: the table's copy from the card to the host, each way three
+  times in turns, with torch's cache of pinned host memory emptied
+  before each (a fresh CLI process has none): ``pageable``, the
+  parent's ``u64_from_keys`` and ``.cpu()``; ``pinned``, the sign flip
+  on the card and both planes into one pinned destination each;
+  ``ring``, the same through a ring of four 16 MB pinned chunks with the
+  host's copy of chunk i out of the ring beside the card's copy of the
+  next; ``fetch_table``, the checkout's ``engine.fetch_table`` where it
+  has one;
+- the rest of the tail as the checkout's `count` runs it: a checkout
+  with ``native.render_counts`` writes the TSV and the histogram in one
+  pass (``write_s``), timed at -t 1, 4 and 8 with the pass alone
+  (``fused_s``) and the histogram's lines; an older one times its
+  histogram (``np.unique``), its min-count filter and its TSV;
+- the in-process CLI `count -k 31 -m 2 --histogram` of the reads, twice.
+
+A checkout from before the parser threads parses serially whatever T
+is.  Prints the host's core counts, then one JSON line per T,
 then the peak RSS of the process.  Run the parent and the change in one
 call, each as its own process, to compare them.
 """
@@ -46,6 +63,131 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+
+
+SIGN = -(1 << 63)
+RING_CHUNK, RING_SLOTS = 1 << 21, 4  # int64 elements a chunk: 16 MB
+
+
+def fetch_pageable(torch, np, keys, counts):
+    """The parent's fetch: ``u64_from_keys`` (``.cpu()``, then the sign
+    flip on the host) and ``counts.cpu()``."""
+    return keys.cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63), counts.cpu().numpy()
+
+
+def fetch_pinned(torch, np, keys, counts):
+    """The sign flipped on the card, both planes copied at once into one
+    pinned destination each, one synchronisation."""
+    hk = torch.empty(keys.shape, dtype=torch.int64, pin_memory=True)
+    hc = torch.empty(counts.shape, dtype=torch.int64, pin_memory=True)
+    hk.copy_(keys ^ SIGN, non_blocking=True)
+    hc.copy_(counts, non_blocking=True)
+    torch.cuda.current_stream().synchronize()
+    return hk.numpy().view(np.uint64), hc.numpy()
+
+
+def fetch_ring(torch, np, native, keys, counts):
+    """The sign flipped on the card, both planes copied chunk by chunk
+    through a ring of RING_SLOTS pinned chunks into fresh (hugepage-advised)
+    host arrays: the host copies chunk i out of the ring while the card
+    copies the next ones in."""
+    n = keys.shape[0]
+    flipped = keys ^ SIGN
+    out_k, out_c = np.empty(n, np.int64), np.empty(n, np.int64)
+    native._advise_hugepages(out_k)
+    native._advise_hugepages(out_c)
+    pieces = [(src, dst, lo, min(lo + RING_CHUNK, n)) for src, dst in ((flipped, out_k), (counts, out_c))
+              for lo in range(0, n, RING_CHUNK)]
+    ring = [torch.empty(RING_CHUNK, dtype=torch.int64, pin_memory=True) for _ in range(RING_SLOTS)]
+    done = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+
+    def issue(i):
+        src, _, lo, hi = pieces[i]
+        ring[i % RING_SLOTS][: hi - lo].copy_(src[lo:hi], non_blocking=True)
+        done[i % RING_SLOTS].record()
+
+    for i in range(min(RING_SLOTS, len(pieces))):
+        issue(i)
+    for i, (_, dst, lo, hi) in enumerate(pieces):
+        done[i % RING_SLOTS].synchronize()
+        np.copyto(dst[lo:hi], ring[i % RING_SLOTS][: hi - lo].numpy())
+        if i + RING_SLOTS < len(pieces):
+            issue(i + RING_SLOTS)
+    return out_k.view(np.uint64), out_c
+
+
+def tail_split(np, torch, engine, native, fq, work) -> dict:
+    """The tail of `count -m 2 --histogram` after its table (see the
+    module's docstring)."""
+    import gc
+
+    from orion_kmer_tpu_torch import cli
+    from orion_kmer_tpu_torch.commands import count as count_cmd
+    from orion_kmer_tpu_torch.keys import keys_from_u64
+
+    vals, counts = engine.count_file(fq, 31, "cuda")
+    keys, cnt = keys_from_u64(vals).cuda(), torch.from_numpy(counts).cuda()
+    # torch's cache of pinned host memory: emptied before each fetch where
+    # this torch can (the name moved between versions)
+    empty_host_cache = (getattr(torch._C, "_host_emptyCache", None)
+                        or getattr(torch._C, "_accelerator_emptyHostCache", None))
+    ways = {"pageable": lambda: fetch_pageable(torch, np, keys, cnt),
+            "pinned": lambda: fetch_pinned(torch, np, keys, cnt),
+            "ring": lambda: fetch_ring(torch, np, native, keys, cnt)}
+    if hasattr(engine, "fetch_table"):
+        ways["fetch_table"] = lambda: engine.fetch_table(keys, cnt)
+    tail = {"rows": int(vals.shape[0]), "host_cache_emptied": empty_host_cache is not None,
+            "fetch_s": {name: [] for name in ways}}
+    for _ in range(3):
+        for name, fetch in ways.items():
+            gc.collect()
+            if empty_host_cache is not None:
+                empty_host_cache()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            got = fetch()
+            tail["fetch_s"][name].append(time.monotonic() - t0)
+            assert np.array_equal(got[0], vals) and np.array_equal(got[1], counts), name
+            del got
+    del keys, cnt
+    if hasattr(native, "render_counts"):
+        tail["threads"] = {}
+        for t in (1, 4, 8):
+            os.environ["ORION_KMER_THREADS"] = str(t)
+            row = {}
+            t0 = time.monotonic()
+            hist = native.render_counts(lambda b: None, vals, counts, 31, 2, True, t)
+            row["fused_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            with open(work / "tail_lines.hist", "w") as f:
+                count_cmd._write_histogram_rows(f, *hist)
+            row["histogram_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            count_cmd.write_counts_tsv(work / "tail.tsv", vals, counts, 31, 2, work / "tail.hist")
+            row["write_s"] = time.monotonic() - t0
+            tail["threads"][t] = row
+    else:
+        t0 = time.monotonic()
+        count_cmd.write_histogram(work / "tail.hist", counts)
+        tail["histogram_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        keep = counts >= 2
+        kept_vals, kept_counts = vals[keep], counts[keep]
+        tail["filter_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        count_cmd.write_counts_tsv(work / "tail.tsv", kept_vals, kept_counts, 31)
+        tail["tsv_s"] = time.monotonic() - t0
+        tail["tsv_lines"] = int(kept_vals.shape[0])
+    tail["cli_s"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.main(["count", "-k", "31", "-m", "2", "--histogram", str(work / "cli.hist"),
+                       "-i", str(fq), "-o", str(work / "cli.tsv")])
+        torch.cuda.synchronize()
+        tail["cli_s"].append(time.monotonic() - t0)
+        assert rc == 0
+    return tail
 
 
 def main() -> int:
@@ -165,23 +307,7 @@ def main() -> int:
             row["query"] = chip_smoke.query_split(torch, engine, host, fq, db_vals, 31, torch.device("cuda"))
         print(json.dumps(row), flush=True)
     if cuda:
-        # the tail of `count -m 2 --histogram` after count_file: histogram, filter, TSV
-        from orion_kmer_tpu_torch.commands import count as count_cmd
-
-        vals, counts = engine.count_file(fq, 31, "cuda")
-        tail = {}
-        t0 = time.monotonic()
-        count_cmd.write_histogram(work / "tail.hist", counts)
-        tail["histogram_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        keep = counts >= 2
-        vals, counts = vals[keep], counts[keep]
-        tail["filter_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        count_cmd.write_counts_tsv(work / "tail.tsv", vals, counts, 31)
-        tail["tsv_s"] = time.monotonic() - t0
-        tail["tsv_lines"] = int(vals.shape[0])
-        print(json.dumps(tail), flush=True)
+        print(json.dumps({"tail": tail_split(np, torch, engine, native, fq, work)}), flush=True)
     print(json.dumps({"peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}), flush=True)
     return 0
 
