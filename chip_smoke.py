@@ -1621,20 +1621,22 @@ def query_split(torch, engine, host, fq, db_vals, k: int, dev) -> dict:
     drained alone, in seconds: the parse (raw bytes); the parse and the
     cut into batches (``host._rebatch_records``); the whole host stage to
     the card (``engine.query_batches``: parse, cut, the pack into the
-    pinned ring and the copies); then ``engine.query_file`` with the time
-    its consumer waited for a staged batch, its two parts (the stream of
-    every read's hits, ``engine._query_stream``, and the passing reads'
-    ids as lines, ``engine._lines_at``), and its device time (torch.profiler).  A
-    checkout without the staged query (a parent's) reports the parse, the
-    ``query_file`` wall and the device time."""
-    import threading
-
+    pinned ring and the copies); then ``engine.query_file`` under a CPU
+    ``torch.profiler``, with the time its consumer waited for a staged
+    batch (the port's ``engine.wait`` spans), its two parts (the stream
+    of every read's hits, ``engine._query_stream``, and the passing
+    reads' ids as lines, ``engine._lines_at``), and its device time
+    (torch.profiler).  A checkout without the staged query (a parent's)
+    reports the parse, the ``query_file`` wall and the device time; one
+    without the spans no wait."""
+    try:
+        from orion_kmer_tpu_torch.utils import spans
+    except ImportError:  # a checkout from before the port's spans
+        spans = None
     out = {"parse_threads": host.parse_threads()}
     t0 = time.monotonic()
     out["positions"] = sum(p.codes.shape[0] for p in host.native_chunks(fq, k, normalize=False))
     out["parse_s"] = time.monotonic() - t0
-    waits = []
-    real = engine._prefetch
     staged = hasattr(engine, "query_batches")
     if staged:
         batch = host.batch_for(k, dev)
@@ -1650,30 +1652,18 @@ def query_split(torch, engine, host, fq, db_vals, k: int, dev) -> dict:
             pass
         torch.cuda.synchronize()
         out["stage_s"] = time.monotonic() - t0
-        consumer = threading.get_ident()
-
-        def waited(iterator, depth=None):
-            it = real(iterator, depth)
-            while True:
-                t0 = time.monotonic()
-                item = next(it, None)
-                if threading.get_ident() == consumer:  # not the parse's own prefetch
-                    waits.append(time.monotonic() - t0)
-                if item is None:
-                    return
-                yield item
-
-        engine._prefetch = waited
-    try:
-        torch.cuda.synchronize()
+    if spans is not None:
+        spans.take()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         t0 = time.monotonic()
         engine.query_file(db_vals, fq, k, 10, dev)
         torch.cuda.synchronize()
         out["query_file_s"] = time.monotonic() - t0
-    finally:
-        engine._prefetch = real
+    if spans is not None:
+        waits = [s.end_ns - s.start_ns for s in spans.take().spans if s.name == "engine.wait"]
+        out["consumer_wait_s"] = 1e-9 * sum(waits)
     if staged:
-        out["consumer_wait_s"] = sum(waits)
         # query_file's two parts: the stream (every read's hits) and the passing reads' ids
         t0 = time.monotonic()
         blob, id_ends, lens, hits = engine._query_stream(db_vals, fq, k, dev)

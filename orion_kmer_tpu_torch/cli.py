@@ -25,7 +25,7 @@ import os
 import sys
 
 from .errors import OrionKmerError
-from .utils import get_num_threads, setup_logging
+from .utils import get_num_threads, setup_logging, spans
 from .version import __version__
 
 logger = logging.getLogger("orion_kmer_tpu_torch")
@@ -276,70 +276,81 @@ def _extract_server_flag(argv: list[str]) -> tuple[str | None, list[str]]:
 
 @contextlib.contextmanager
 def _profiled(trace_dir: str, device):
-    """Record a torch.profiler trace of the block into trace_dir."""
+    """Record a torch.profiler trace of the block into trace_dir, with the
+    port's spans (``utils/spans.py``) under one ``cli.call`` root; the
+    recorder is emptied after, since the trace holds them."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
+    # every thread's ops and spans, the prefetch thread's too
+    config = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=config) as prof:
+        with spans.span("cli.call"):
+            yield
+    spans.take()
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace.{os.getpid()}.json"))
 
 
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:]) if argv is None else [str(a) for a in argv]
-    server_path, argv = _extract_server_flag(argv)
-    if server_path is not None:
-        from .server import forward
+    """Run one command; its exit code.  The whole call is the ``cli.call``
+    span where a caller's profiler records (a benchmark's window); with
+    ``--trace`` the span opens once that profiler has started."""
+    with spans.span("cli.call"):
+        argv = list(sys.argv[1:]) if argv is None else [str(a) for a in argv]
+        server_path, argv = _extract_server_flag(argv)
+        if server_path is not None:
+            from .server import forward
 
-        return forward(server_path, argv)
-    args = build_parser().parse_args(argv)
-    setup_logging(args.verbose)
+            return forward(server_path, argv)
+        args = build_parser().parse_args(argv)
+        setup_logging(args.verbose)
 
-    # host worker threads (-t, 0 = all cores), read by the ingest
-    # prefetch queue through ORION_KMER_THREADS
-    os.environ["ORION_KMER_THREADS"] = str(get_num_threads(args.threads))
+        # host worker threads (-t, 0 = all cores), read by the ingest
+        # prefetch queue through ORION_KMER_THREADS
+        os.environ["ORION_KMER_THREADS"] = str(get_num_threads(args.threads))
 
-    import torch
+        import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print(
-            "[ERROR orion_kmer_tpu] Error: no CUDA device is available "
-            "(pass --device cpu to run on the CPU)",
-            file=sys.stderr,
-        )
-        return 1
-    device = torch.device(args.device)
-    logger.info("Device: %s", device)
+        if args.device == "cuda" and not torch.cuda.is_available():
+            print(
+                "[ERROR orion_kmer_tpu] Error: no CUDA device is available "
+                "(pass --device cpu to run on the CPU)",
+                file=sys.stderr,
+            )
+            return 1
+        device = torch.device(args.device)
+        logger.info("Device: %s", device)
 
-    from .commands import build, classify, cohort, compare, count, profile, query, sketch
-    from .server import run_serve
+        from .commands import build, classify, cohort, compare, count, profile, query, sketch
+        from .server import run_serve
 
-    dispatch = {
-        "serve": run_serve,
-        "count": count.run_count,
-        "build": build.run_build,
-        "compare": compare.run_compare,
-        "query": query.run_query,
-        "classify": classify.run_classify,
-        "sketch": sketch.run_sketch,
-        "sketch-compare": sketch.run_sketch_compare,
-        "profile": profile.run_profile,
-        "cohort": cohort.run_cohort,
-    }
-    try:
-        ctx = _profiled(args.trace, device) if args.trace else contextlib.nullcontext()
-        with ctx:
-            dispatch[args.command](args, device)
-    except OrionKmerError as e:
-        print(f"[ERROR orion_kmer_tpu] Error: {e}", file=sys.stderr)
-        return 1
-    except OSError as e:
-        print(f"[ERROR orion_kmer_tpu] Error: {e}", file=sys.stderr)
-        return 1
-    return 0
+        dispatch = {
+            "serve": run_serve,
+            "count": count.run_count,
+            "build": build.run_build,
+            "compare": compare.run_compare,
+            "query": query.run_query,
+            "classify": classify.run_classify,
+            "sketch": sketch.run_sketch,
+            "sketch-compare": sketch.run_sketch_compare,
+            "profile": profile.run_profile,
+            "cohort": cohort.run_cohort,
+        }
+        try:
+            ctx = _profiled(args.trace, device) if args.trace else contextlib.nullcontext()
+            with ctx:
+                dispatch[args.command](args, device)
+        except OrionKmerError as e:
+            print(f"[ERROR orion_kmer_tpu] Error: {e}", file=sys.stderr)
+            return 1
+        except OSError as e:
+            print(f"[ERROR orion_kmer_tpu] Error: {e}", file=sys.stderr)
+            return 1
+        return 0
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ from ..host import CountAccumulator
 from ..ingest import native
 from ..ingest.compress import TextOut
 from ..ingest.fastx import FastxParseError
-from ..utils import track_progress_and_resources
+from ..utils import spans, track_progress_and_resources
 from ..utils.progress import worker_threads
 
 logger = logging.getLogger("orion_kmer_tpu_torch.count")
@@ -38,34 +38,35 @@ def write_counts_tsv(path, vals: np.ndarray, counts: np.ndarray, k: int,
     (``native.render_counts``) spread over -t threads (ORION_KMER_THREADS);
     else the numpy filter, ``write_histogram`` and the codec's render.
     The histogram stays whole, as it is written before the filter, when
-    the TSV fails."""
-    if not native.available():
-        if histogram is not None:
-            write_histogram(histogram, counts)
-        if min_count is not None:
-            keep = counts >= min_count
-            vals, counts = vals[keep], counts[keep]
-        with TextOut(path) as f:
-            chunk = 1 << 16
-            for start in range(0, vals.shape[0], chunk):
-                seqs = codec.u64s_to_seqs(vals[start : start + chunk], k)
-                cnts = counts[start : start + chunk].tolist()
-                f.write("".join(f"{s.decode('ascii')}\t{c}\n" for s, c in zip(seqs, cnts)))
-        return
-    with contextlib.ExitStack() as stack:
-        hist_out = None if histogram is None else stack.enter_context(TextOut(histogram))
-        try:
+    the TSV fails.  Under a ``count.tail`` span."""
+    with spans.span("count.tail"):
+        if not native.available():
+            if histogram is not None:
+                write_histogram(histogram, counts)
+            if min_count is not None:
+                keep = counts >= min_count
+                vals, counts = vals[keep], counts[keep]
             with TextOut(path) as f:
-                f.flush()  # nothing buffered yet; keep text/binary ordering safe
-                rows = native.render_counts(
-                    f.buffer.write, vals, counts, k, min_count, hist_out is not None, worker_threads()
-                )
-        except (ContextError, OSError):
+                chunk = 1 << 16
+                for start in range(0, vals.shape[0], chunk):
+                    seqs = codec.u64s_to_seqs(vals[start : start + chunk], k)
+                    cnts = counts[start : start + chunk].tolist()
+                    f.write("".join(f"{s.decode('ascii')}\t{c}\n" for s, c in zip(seqs, cnts)))
+            return
+        with contextlib.ExitStack() as stack:
+            hist_out = None if histogram is None else stack.enter_context(TextOut(histogram))
+            try:
+                with TextOut(path) as f:
+                    f.flush()  # nothing buffered yet; keep text/binary ordering safe
+                    rows = native.render_counts(
+                        f.buffer.write, vals, counts, k, min_count, hist_out is not None, worker_threads()
+                    )
+            except (ContextError, OSError):
+                if hist_out is not None:
+                    _write_histogram_rows(hist_out, *np.unique(counts, return_counts=True))
+                raise
             if hist_out is not None:
-                _write_histogram_rows(hist_out, *np.unique(counts, return_counts=True))
-            raise
-        if hist_out is not None:
-            _write_histogram_rows(hist_out, *rows)
+                _write_histogram_rows(hist_out, *rows)
 
 
 def _load_checkpoint(path, k):

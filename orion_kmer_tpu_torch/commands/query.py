@@ -17,7 +17,7 @@ from ..engine import query_lines
 from ..errors import ContextError, validate_k
 from ..ingest.compress import open_output
 from ..ingest.fastx import FastxParseError
-from ..utils import track_progress_and_resources
+from ..utils import spans, track_progress_and_resources
 
 logger = logging.getLogger("orion_kmer_tpu_torch.query")
 
@@ -50,5 +50,5 @@ def run_query(args, device) -> None:
     logger.info(
         "Found %d reads matching criteria (min_hits: %d).", lines.count(b"\n"), args.min_hits
     )
-    with open_output(args.output_file) as f:
+    with spans.span("query.tail"), open_output(args.output_file) as f:
         f.write(lines)

@@ -30,6 +30,7 @@ import numpy as np
 
 from .errors import ContextError, DeserializationError
 from .ingest.compress import open_output, read_bytes
+from .utils import spans
 
 _U64 = struct.Struct("<Q")
 
@@ -52,14 +53,18 @@ class KmerDb:
     references: dict[str, np.ndarray] = field(default_factory=dict)
 
     def add_reference(self, name: str, kmers: np.ndarray) -> None:
-        """Insert/overwrite a reference (db_types.rs:38-40)."""
-        self.references[name] = sorted_unique(kmers)
+        """Insert/overwrite a reference (db_types.rs:38-40), under a
+        ``db.add`` span."""
+        with spans.span("db.add"):
+            self.references[name] = sorted_unique(kmers)
 
     def get_all_kmers_unified(self) -> np.ndarray:
-        """Union of all reference sets, sorted (db_types.rs:43-48)."""
+        """Union of all reference sets, sorted (db_types.rs:43-48), under
+        a ``db.union`` span."""
         if not self.references:
             return np.empty(0, dtype=np.uint64)
-        return sorted_unique(np.concatenate(list(self.references.values())))
+        with spans.span("db.union"):
+            return sorted_unique(np.concatenate(list(self.references.values())))
 
     def total_unique_kmers(self) -> int:
         return int(self.get_all_kmers_unified().shape[0])
@@ -118,16 +123,19 @@ class KmerDb:
             ) from e
 
     def save(self, path) -> None:
-        with open_output(path) as f:
+        """Write the bincode to ``path`` under a ``db.save`` span."""
+        with spans.span("db.save"), open_output(path) as f:
             f.write(self.to_bincode())
 
     @classmethod
     def load(cls, path) -> "KmerDb":
-        """Load a DB file, decompressing by extension (utils.rs:37-55)."""
-        try:
-            data = read_bytes(path)
-        except ContextError as e:
-            raise ContextError(
-                f"Failed to get input reader for k-mer database: {str(path)!r}", e
-            ) from e
-        return cls.from_bincode(data, source=str(path))
+        """Load a DB file, decompressing by extension (utils.rs:37-55),
+        under a ``db.load`` span."""
+        with spans.span("db.load"):
+            try:
+                data = read_bytes(path)
+            except ContextError as e:
+                raise ContextError(
+                    f"Failed to get input reader for k-mer database: {str(path)!r}", e
+                ) from e
+            return cls.from_bincode(data, source=str(path))

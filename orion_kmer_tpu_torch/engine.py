@@ -43,6 +43,7 @@ from .host import (
     iter_packed_batches,
     native_chunks,
     pack_for_transfer,
+    parse_spans,
     parse_threads,
     stream_file_codes,
 )
@@ -52,6 +53,7 @@ from .keys import keys_from_u64, u64_from_keys
 from .ops import setops
 from .ops.count import combine_sorted_unique, merge_runs, rle_sorted, sort_canonical_packed
 from .ops.extract import extract_keys
+from .utils import spans
 
 logger = logging.getLogger("orion_kmer_tpu_torch.engine")
 
@@ -74,17 +76,19 @@ def fetch_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, n
     On a card the sign bit is flipped there, and both planes are copied
     without blocking into pinned host memory, in flight at once, with one
     synchronisation; the arrays returned own that memory.  A CPU tensor
-    takes the plain path: ``u64_from_keys`` and the counts' own memory."""
-    if keys.device.type == "cpu":
-        return u64_from_keys(keys), counts.numpy()
-    if keys.device.type != "cuda":
-        raise ValueError(f"fetch_table: tensors on {keys.device}, not cpu or cuda")
-    host_keys = torch.empty(keys.shape, dtype=torch.int64, pin_memory=True)
-    host_counts = torch.empty(counts.shape, dtype=torch.int64, pin_memory=True)
-    host_keys.copy_(keys ^ _SIGN_BIT, non_blocking=True)
-    host_counts.copy_(counts, non_blocking=True)
-    torch.cuda.current_stream(keys.device).synchronize()
-    return host_keys.numpy().view(np.uint64), host_counts.numpy()
+    takes the plain path: ``u64_from_keys`` and the counts' own memory.
+    An ``engine.fetch`` span counts the bytes of both planes."""
+    with spans.span("engine.fetch", bytes=16 * keys.shape[0]):
+        if keys.device.type == "cpu":
+            return u64_from_keys(keys), counts.numpy()
+        if keys.device.type != "cuda":
+            raise ValueError(f"fetch_table: tensors on {keys.device}, not cpu or cuda")
+        host_keys = torch.empty(keys.shape, dtype=torch.int64, pin_memory=True)
+        host_counts = torch.empty(counts.shape, dtype=torch.int64, pin_memory=True)
+        host_keys.copy_(keys ^ _SIGN_BIT, non_blocking=True)
+        host_counts.copy_(counts, non_blocking=True)
+        torch.cuda.current_stream(keys.device).synchronize()
+        return host_keys.numpy().view(np.uint64), host_counts.numpy()
 
 
 class DeviceCountTable:
@@ -134,11 +138,13 @@ class DeviceCountTable:
 
     def update_packed(self, lanes, inv_words, size: int, n_windows: int):
         """Fold one wire-format batch in (size = 16 * len(lanes) positions,
-        of which the first n_windows are real)."""
-        self.add_run(sort_canonical_packed(lanes, inv_words, self.k, n_windows), size)
-        self._windows_since_flush += n_windows
-        if self._windows_since_flush >= self.FLUSH_WINDOWS:
-            self.flush()
+        of which the first n_windows are real), under an ``engine.update``
+        span: the host's cost of enqueueing a batch."""
+        with spans.span("engine.update"):
+            self.add_run(sort_canonical_packed(lanes, inv_words, self.k, n_windows), size)
+            self._windows_since_flush += n_windows
+            if self._windows_since_flush >= self.FLUSH_WINDOWS:
+                self.flush()
 
     def add_run(self, run, level: int):
         """Add one ready raw run (ascending keys on this device, n_valid)
@@ -179,15 +185,16 @@ class DeviceCountTable:
         self._table = None
 
     def flush(self):
-        for cap in sorted(self._runs):
-            keys, n_valid = self._runs[cap]
-            self.stats["flush_dispatches"] += 1
-            self.stats["rle_elements"] += keys.shape[0]
-            ukeys, ucnt = rle_sorted(keys, n_valid)
-            if ukeys.shape[0]:
-                self._fold_into_table(ukeys, ucnt)
-        self._runs = {}
-        self._windows_since_flush = 0
+        with spans.span("engine.flush"):
+            for cap in sorted(self._runs):
+                keys, n_valid = self._runs[cap]
+                self.stats["flush_dispatches"] += 1
+                self.stats["rle_elements"] += keys.shape[0]
+                ukeys, ucnt = rle_sorted(keys, n_valid)
+                if ukeys.shape[0]:
+                    self._fold_into_table(ukeys, ucnt)
+            self._runs = {}
+            self._windows_since_flush = 0
 
     def result(self) -> tuple[np.ndarray, np.ndarray]:
         """(u64 values ascending, int64 counts) of everything folded in."""
@@ -251,30 +258,32 @@ class PinnedRing:
     def stage(self, codes: np.ndarray, size: int, starts: np.ndarray | None = None):
         """Pack ``codes`` at wire size ``size`` into the next buffer and
         start its copy to the device: (lanes, invalid words) there, and
-        ``starts`` (int64) copied beside them when given."""
-        i = self._next
-        self._next = (i + 1) % self.SLOTS
-        slot = self._slots[i]
-        if slot is not None:
-            slot[2].synchronize()
-        if slot is None or slot[0].shape[0] < size // 16:
-            slot = self._slots[i] = [
-                torch.empty(size // 16, dtype=torch.int32, pin_memory=True),
-                torch.empty(size // 32, dtype=torch.int32, pin_memory=True),
-                torch.cuda.Event(),
-                None if slot is None else slot[3],
-            ]
-        lanes, inv, done = slot[0][: size // 16], slot[1][: size // 32], slot[2]
-        self._pack(codes, size, lanes.numpy().view(np.uint32), inv.numpy().view(np.uint32))
-        staged = lanes.to(self.device, non_blocking=True), inv.to(self.device, non_blocking=True)
-        if starts is not None:
-            m = starts.shape[0]
-            if slot[3] is None or slot[3].shape[0] < m:
-                slot[3] = torch.empty(_bucket(m), dtype=torch.int64, pin_memory=True)
-            slot[3].numpy()[:m] = starts
-            staged += (slot[3][:m].to(self.device, non_blocking=True),)
-        done.record(torch.cuda.current_stream(self.device))
-        return staged
+        ``starts`` (int64) copied beside them when given.  Under an
+        ``ingest.stage`` span, with the wait for the slot's last copy."""
+        with spans.span("ingest.stage"):
+            i = self._next
+            self._next = (i + 1) % self.SLOTS
+            slot = self._slots[i]
+            if slot is not None:
+                slot[2].synchronize()
+            if slot is None or slot[0].shape[0] < size // 16:
+                slot = self._slots[i] = [
+                    torch.empty(size // 16, dtype=torch.int32, pin_memory=True),
+                    torch.empty(size // 32, dtype=torch.int32, pin_memory=True),
+                    torch.cuda.Event(),
+                    None if slot is None else slot[3],
+                ]
+            lanes, inv, done = slot[0][: size // 16], slot[1][: size // 32], slot[2]
+            self._pack(codes, size, lanes.numpy().view(np.uint32), inv.numpy().view(np.uint32))
+            staged = lanes.to(self.device, non_blocking=True), inv.to(self.device, non_blocking=True)
+            if starts is not None:
+                m = starts.shape[0]
+                if slot[3] is None or slot[3].shape[0] < m:
+                    slot[3] = torch.empty(_bucket(m), dtype=torch.int64, pin_memory=True)
+                slot[3].numpy()[:m] = starts
+                staged += (slot[3][:m].to(self.device, non_blocking=True),)
+            done.record(torch.cuda.current_stream(self.device))
+            return staged
 
 
 def staged_batches(path, k: int, normalize: bool, batch: int, device):
@@ -285,7 +294,7 @@ def staged_batches(path, k: int, normalize: bool, batch: int, device):
     arrays."""
     ring = PinnedRing(device, parse_threads()) if device.type == "cuda" else None
     try:
-        for codes in stream_file_codes(path, k, normalize, batch):
+        for codes in parse_spans(stream_file_codes(path, k, normalize, batch), k):
             n = codes.shape[0]
             size = _bucket(n)
             if ring is None:
@@ -331,42 +340,45 @@ def count_file(
     """Canonical k-mer counts of one file on ``device``: native parse ->
     prefetch (parse + pack + stage) -> device-resident accumulation ->
     one fetch.  Spread over several shards when ``_make_count_table`` says
-    so.  Returns (u64 values ascending, int64 counts)."""
-    device = torch.device(device)
-    table = _make_count_table(k, device)
-    batch = batch_for(k, device)
-    if isinstance(table, DeviceCountTable):
-        batches = staged_batches(path, k, normalize, batch, device)
+    so.  Returns (u64 values ascending, int64 counts).  Under an
+    ``engine.count_file`` span."""
+    with spans.span("engine.count_file"):
+        device = torch.device(device)
+        table = _make_count_table(k, device)
+        batch = batch_for(k, device)
+        if isinstance(table, DeviceCountTable):
+            batches = staged_batches(path, k, normalize, batch, device)
 
-        def fold(staged) -> int:
-            table.update_packed(*staged)
-            return staged[3]
+            def fold(staged) -> int:
+                table.update_packed(*staged)
+                return staged[3]
 
-    else:
-        # the sharded table cuts, packs and stages each batch itself
-        batches = stream_file_codes(path, k, normalize, batch)
+        else:
+            # the sharded table cuts, packs and stages each batch itself
+            batches = parse_spans(stream_file_codes(path, k, normalize, batch), k)
 
-        def fold(codes) -> int:
-            table.update(codes)
-            return codes.shape[0]
+            def fold(codes) -> int:
+                table.update(codes)
+                return codes.shape[0]
 
-    positions = 0
-    t0 = time.monotonic()
-    last_log = t0
-    for item in _prefetch(batches):
-        positions += fold(item)
-        now = time.monotonic()
-        if now - last_log >= 30.0:
-            logger.info(
-                "count progress: %.1fM positions dispatched (%.1f s)",
-                positions / 1e6,
-                now - t0,
-            )
-            last_log = now
-    result = table.result()
-    if not isinstance(table, DeviceCountTable):
-        logger.info("sharded count: %s", table.stats_report())
-    return result
+        positions = 0
+        t0 = time.monotonic()
+        last_log = t0
+        # engine.wait: the consumer, and the card, waiting on the host stage
+        for item in spans.each(_prefetch(batches), "engine.wait"):
+            positions += fold(item)
+            now = time.monotonic()
+            if now - last_log >= 30.0:
+                logger.info(
+                    "count progress: %.1fM positions dispatched (%.1f s)",
+                    positions / 1e6,
+                    now - t0,
+                )
+                last_log = now
+        result = table.result()
+        if not isinstance(table, DeviceCountTable):
+            logger.info("sharded count: %s", table.stats_report())
+        return result
 
 
 def unique_from_file(path, k: int, device) -> np.ndarray:
@@ -474,8 +486,9 @@ def query_batches(path, k: int, batch: int, device):
     if threads > 1:
         chunks = _prefetch(chunks, depth=2)  # the pieces checked and ordered on a thread of their own
     stream = ((p.codes, p.rec_ends, (p.id_blob, p.id_ends)) for p in chunks)
+    cuts = parse_spans(_rebatch_records(stream, k, batch), k, lambda cut: cut[0].shape[0])
     try:
-        for piece, starts, rids, new in _rebatch_records(stream, k, batch):
+        for piece, starts, rids, new in cuts:
             records = [(blob, ends, lens) for (blob, ends), lens in new]
             if piece.shape[0] == 0:
                 yield QueryBatch(None, None, 0, 0, None, 0, records)
@@ -538,7 +551,8 @@ class _LateHits:
         first_rid, host, event = self._pending
         self._pending = None
         if event is not None:
-            event.synchronize()
+            with spans.span("query.late_wait"):
+                event.synchronize()
         # a batch's records are distinct and contiguous, so adding to the
         # slice folds a record split across cuts
         self.hits[first_rid : first_rid + host.shape[0]] += host.numpy()
@@ -561,7 +575,7 @@ def _query_stream(db_vals: np.ndarray, path, k: int, device):
     n_records = blob_len = 0
     late = _LateHits(device)
     try:
-        for qb in _prefetch(query_batches(path, k, batch_for(k, device), device)):
+        for qb in spans.each(_prefetch(query_batches(path, k, batch_for(k, device), device)), "engine.wait"):
             for blob, ends, chunk_lens in qb.records:
                 blobs.append(blob)
                 id_ends.append(ends + blob_len)
@@ -611,9 +625,11 @@ def query_hits(
 
 def query_lines(db_vals: np.ndarray, path, k: int, min_hits: int, device) -> bytes:
     """``query_file``'s ids as the query command writes them, each
-    followed by a newline; only the passing reads' bytes are gathered."""
+    followed by a newline; only the passing reads' bytes are gathered,
+    under a ``query.tail`` span."""
     blob, id_ends, lens, hits = _query_stream(db_vals, path, k, device)
-    return _lines_at(blob, id_ends, (hits >= min_hits) & (lens >= k))
+    with spans.span("query.tail"):
+        return _lines_at(blob, id_ends, (hits >= min_hits) & (lens >= k))
 
 
 def query_file(db_vals: np.ndarray, path, k: int, min_hits: int, device) -> list[bytes]:

@@ -13,6 +13,7 @@ a (k-1)-base halo, so every window is produced exactly once.
 
 from __future__ import annotations
 
+import contextvars
 import io
 import os
 import queue
@@ -26,6 +27,7 @@ from .errors import ContextError
 from .ingest import native
 from .ingest.compress import open_input
 from .ingest.fastx import FastxParseError, Record, parse_fastx_file
+from .utils import spans
 from .utils.progress import worker_threads
 
 _MIN_BUCKET = 4096
@@ -719,6 +721,23 @@ def stream_file_codes(path, k: int, normalize: bool = True, batch_positions: int
         raise FastxParseError(f"Failed to get input reader for file: {path}", e) from e
 
 
+def parse_spans(batches, k: int, positions=len):
+    """``batches`` of a k-mer stream as ``_rebatch_arrays`` or
+    ``_rebatch_records`` cut it, each ``next()`` under an ``ingest.parse``
+    span that counts the positions new in its batch (each batch after the
+    first repeats the (k-1)-position halo of the one before), so the
+    counts sum to the stream's positions.  ``positions`` gives a batch's
+    positions."""
+    halo = 0
+
+    def counted(batch, sp) -> None:
+        nonlocal halo
+        sp.add("positions", max(0, positions(batch) - halo))
+        halo = k - 1
+
+    return spans.each(batches, "ingest.parse", counted)
+
+
 def stream_file_batches(
     path,
     k: int,
@@ -855,9 +874,15 @@ def _prefetch(iterator, depth: int | None = None):
     """Run an iterator on a background thread with a bounded queue so host
     parse/pack overlaps device compute.  Queue depth follows -t/--threads
     (ORION_KMER_THREADS; min 2).  A consumer that stops early stops the
-    thread, which closes the iterator."""
+    thread, which closes the iterator.  The thread runs under a copy of
+    the caller's context at this call, so its spans (``utils/spans.py``)
+    have the caller's open span as their parent."""
     if depth is None:
         depth = max(2, worker_threads(default=2))
+    return _prefetched(iterator, depth, contextvars.copy_context())
+
+
+def _prefetched(iterator, depth: int, context: contextvars.Context):
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     _END = object()
     err: list[BaseException] = []
@@ -876,7 +901,7 @@ def _prefetch(iterator, depth: int | None = None):
                 close()
             _put(q, _END, stop)
 
-    t = threading.Thread(target=worker, name="okt-prefetch", daemon=True)
+    t = threading.Thread(target=context.run, args=(worker,), name="okt-prefetch", daemon=True)
     t.start()
     try:
         while True:

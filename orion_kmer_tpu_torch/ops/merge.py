@@ -13,6 +13,11 @@ Replaces ``orion_kmer_tpu/ops/sort_pallas.py::_ce_fused_kernel`` and
 any lengths; on equal keys the elements of ``a`` come first.  Each mode
 has its plain torch version beside it; a CPU tensor takes it, a CUDA
 tensor takes the kernel, anything else raises.
+
+Each launch adds its least bytes to the span count ``k2.bytes``
+(``utils/spans.py``), from host-side lengths: every key read once and
+written once, 16 B a key; 32 B with a payload; 33 B in the fold, with
+its keep byte.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import math
 import torch
 
 from .. import _kernels
+from ..utils import spans
 
 launches = 0  # kernel launches since the last reset
 by_caller: dict[str, int] = {}  # the same launches by caller: forest, fold, join
@@ -82,6 +88,7 @@ def _launch(operands, with_payload: bool, with_keep: bool, caller: str):
         )
     global launches
     launches += 1
+    spans.count("k2.bytes", (na + nb) * (16 + 16 * with_payload + with_keep))
     by_caller[caller] = by_caller.get(caller, 0) + 1
     size = f"{caller} ~2^{round(math.log2(na + nb))}"
     by_size[size] = by_size.get(size, 0) + 1

@@ -18,8 +18,11 @@ of the checkout at ``--root`` (default: this one):
   positions/s;
 - stage: ``engine.staged_batches`` drained on the card (the host stage
   and the copies, no device work), where a card is visible;
-- count: ``engine.count_file`` on the card, wall, and the time its
-  consumer waited for the next staged batch, where a card is visible;
+- count: ``engine.count_file`` on the card under a CPU ``torch.profiler``
+  (on both sides of a comparison), wall, and the time its consumer
+  waited for the next staged batch, the port's ``engine.wait`` spans
+  (``utils/spans.py``; None for a checkout without them), where a card
+  is visible;
 - query: ``chip_smoke.query_split`` on the card, `query -c 10` of the
   reads against the DB of ``chip_smoke.py`` phase 6 (its three
   references): the parse of the raw reads, the parse and the cut, the
@@ -254,19 +257,10 @@ def main() -> int:
         return out
 
     setattr(native, name, timed)
-    waits = []
-    if cuda:
-        real_prefetch = engine._prefetch
-
-        def waited(iterator, depth=None):
-            it = real_prefetch(iterator, depth)
-            while True:
-                t0 = time.monotonic()
-                item = next(it, None)
-                waits.append(time.monotonic() - t0)
-                if item is None:
-                    return
-                yield item
+    try:
+        from orion_kmer_tpu_torch.utils import spans
+    except ImportError:  # a checkout from before the port's spans
+        spans = None
 
     for t in [int(x) for x in args.threads.split(",")]:
         os.environ["ORION_KMER_THREADS"] = str(t)
@@ -296,14 +290,15 @@ def main() -> int:
                 pass
             torch.cuda.synchronize()
             row["stage_s"] = time.monotonic() - t0
-            waits.clear()
-            engine._prefetch = waited
-            t0 = time.monotonic()
-            engine.count_file(fq, 31, "cuda")
-            torch.cuda.synchronize()
-            row["count_file_s"] = time.monotonic() - t0
-            engine._prefetch = real_prefetch
-            row["count_file_wait_s"] = sum(waits)
+            if spans is not None:
+                spans.take()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                t0 = time.monotonic()
+                engine.count_file(fq, 31, "cuda")
+                torch.cuda.synchronize()
+                row["count_file_s"] = time.monotonic() - t0
+            row["count_file_wait_s"] = None if spans is None else 1e-9 * sum(
+                s.end_ns - s.start_ns for s in spans.take().spans if s.name == "engine.wait")
             row["query"] = chip_smoke.query_split(torch, engine, host, fq, db_vals, 31, torch.device("cuda"))
         print(json.dumps(row), flush=True)
     if cuda:
