@@ -109,7 +109,7 @@ def run_build(args, device) -> None:
     logger.info(
         "Database contains %d references and %d total unique canonical k-mers.",
         db.num_references(),
-        db.total_unique_kmers(),
+        db.total_unique_kmers(device),
     )
     try:
         db.save(args.output_file)

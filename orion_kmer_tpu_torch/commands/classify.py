@@ -194,7 +194,7 @@ def classify_against_databases(
                 )
         overall_matched = int(overall_mask.sum())
         overall_depth = int(input_counts[overall_mask].sum())
-        total_in_db = db.total_unique_kmers()
+        total_in_db = db.total_unique_kmers(device)
         db_results.append(
             {
                 "database_path": db_path_str,

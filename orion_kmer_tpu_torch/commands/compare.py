@@ -30,8 +30,8 @@ def run_compare(args, device) -> None:
     kmer_size = db1.k
 
     def task(pb):
-        a = db1.get_all_kmers_unified()
-        b = db2.get_all_kmers_unified()
+        a = db1.get_all_kmers_unified(device)
+        b = db2.get_all_kmers_unified(device)
         inter = intersection_size_host(a, b, device)
         union = a.shape[0] + b.shape[0] - inter
         jaccard = (inter / union) if union else 0.0  # compare.rs:62-66

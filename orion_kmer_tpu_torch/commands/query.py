@@ -27,7 +27,7 @@ def run_query(args, device) -> None:
     k = db.k
     validate_k(k)
 
-    db_all = db.get_all_kmers_unified()
+    db_all = db.get_all_kmers_unified(device)
     logger.info(
         "Querying reads from %s against database with k=%d (%d unique k-mers in DB)",
         args.reads_file,

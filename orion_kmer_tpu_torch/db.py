@@ -58,16 +58,32 @@ class KmerDb:
         with spans.span("db.add"):
             self.references[name] = sorted_unique(kmers)
 
-    def get_all_kmers_unified(self) -> np.ndarray:
+    def get_all_kmers_unified(self, device=None) -> np.ndarray:
         """Union of all reference sets, sorted (db_types.rs:43-48), under
-        a ``db.union`` span."""
-        if not self.references:
-            return np.empty(0, dtype=np.uint64)
-        with spans.span("db.union"):
-            return sorted_unique(np.concatenate(list(self.references.values())))
+        a ``db.union`` span; on a CUDA ``device`` it is merged there
+        (``engine.union_of_sets``)."""
+        return self._union(device, fetch=True)[0]
 
-    def total_unique_kmers(self) -> int:
-        return int(self.get_all_kmers_unified().shape[0])
+    def total_unique_kmers(self, device=None) -> int:
+        """The size of the union, which a CUDA ``device`` counts without
+        fetching it."""
+        return self._union(device, fetch=False)[1]
+
+    def _union(self, device, fetch: bool):
+        """(the union's ascending values, or None where a card counted it
+        unfetched; its size), under a ``db.union`` span that counts the
+        ``keys`` merged.  ``device`` None or the CPU: numpy's stable sort
+        of the concatenated sets."""
+        sets = list(self.references.values())
+        if not sets:
+            return np.empty(0, dtype=np.uint64), 0
+        with spans.span("db.union", keys=sum(s.shape[0] for s in sets)):
+            if device is not None and str(device).startswith("cuda"):
+                from .engine import union_of_sets  # torch is loaded where a card runs
+
+                return union_of_sets(sets, device, fetch=fetch)
+            union = sorted_unique(np.concatenate(sets))
+            return union, int(union.shape[0])
 
     def num_references(self) -> int:
         return len(self.references)

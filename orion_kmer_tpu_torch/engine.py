@@ -51,6 +51,7 @@ from .ingest import native
 from .ingest.fastx import FastxParseError, Record, parse_fastx_file
 from .keys import keys_from_u64, u64_from_keys
 from .ops import setops
+from .ops.compact import compact
 from .ops.count import combine_sorted_unique, merge_runs, rle_sorted, sort_canonical_packed
 from .ops.extract import extract_keys
 from .utils import spans
@@ -83,12 +84,55 @@ def fetch_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, n
             return u64_from_keys(keys), counts.numpy()
         if keys.device.type != "cuda":
             raise ValueError(f"fetch_table: tensors on {keys.device}, not cpu or cuda")
-        host_keys = torch.empty(keys.shape, dtype=torch.int64, pin_memory=True)
-        host_counts = torch.empty(counts.shape, dtype=torch.int64, pin_memory=True)
-        host_keys.copy_(keys ^ _SIGN_BIT, non_blocking=True)
-        host_counts.copy_(counts, non_blocking=True)
+        host_keys, host_counts = _pinned_copy(keys ^ _SIGN_BIT), _pinned_copy(counts)
         torch.cuda.current_stream(keys.device).synchronize()
         return host_keys.numpy().view(np.uint64), host_counts.numpy()
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A card's tensor copied into pinned host memory without blocking;
+    the caller synchronises before reading it."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _sets_on_device(sets: list[np.ndarray], device: torch.device) -> torch.Tensor:
+    """Sorted unique u64 sets, back to back in one int64 buffer on
+    ``device``, flipped there (``keys_from_u64``'s order), with one spare
+    key a set after them (``setops.union_runs``).  Each set is copied into
+    its slice as it is: a ``view``, no host copy."""
+    n = sum(s.shape[0] for s in sets)
+    buf = torch.empty(n + len(sets), dtype=torch.int64, device=device)
+    off = 0
+    for s in sets:
+        vals = torch.from_numpy(np.ascontiguousarray(s, dtype=np.uint64).view(np.int64))
+        buf[off : off + vals.shape[0]].copy_(vals)
+        off += vals.shape[0]
+    buf[:n].bitwise_xor_(_SIGN_BIT)
+    return buf
+
+
+def union_of_sets(sets: list[np.ndarray], device, fetch: bool = True) -> tuple[np.ndarray | None, int]:
+    """The union of sorted unique u64 sets, merged on ``device`` by a K2
+    forest (``setops.union_runs``): (its ascending u64 values, or None
+    without ``fetch``; its size, read with one synchronisation).
+
+    With ``fetch`` K3 compacts the heads, and they come back with the sign
+    flipped back, on a card into pinned memory as ``fetch_table`` does."""
+    device = torch.device(device)
+    keys, heads = setops.union_runs(_sets_on_device(sets, device), [s.shape[0] for s in sets])
+    if not fetch:
+        return None, int(heads.sum())
+    (ukeys,), n_u = compact([keys], heads)
+    del keys, heads  # the merged buffer goes before the fetch
+    m = int(n_u)
+    ukeys = ukeys[:m].bitwise_xor_(_SIGN_BIT)
+    if device.type == "cpu":
+        return ukeys.numpy().view(np.uint64), m
+    host = _pinned_copy(ukeys)
+    torch.cuda.current_stream(device).synchronize()
+    return host.numpy().view(np.uint64), m
 
 
 class DeviceCountTable:

@@ -1,7 +1,7 @@
 """K2: stable merge of two ascending int64 key runs in one launch
 (``csrc/merge.cu``), in three modes.
 
-- ``merge(a, b)``: the keys only (the merge forest, ``intersection_size``);
+- ``merge(a, b)``: the keys only (the merge forests, ``intersection_size``);
 - ``merge(a, b, pa, pb)``: with an int64 payload (the joins);
 - ``merge_combine(a, b, ca, cb)``: the fold of two sorted-unique counted
   tables: the merged keys, each count summed with an equal successor's,
@@ -30,7 +30,7 @@ from .. import _kernels
 from ..utils import spans
 
 launches = 0  # kernel launches since the last reset
-by_caller: dict[str, int] = {}  # the same launches by caller: forest, fold, join
+by_caller: dict[str, int] = {}  # the same launches by caller: forest, fold, join, union
 by_size: dict[str, int] = {}  # and by caller and merged length, to the nearest power of two: "forest ~2^25"
 
 
@@ -66,12 +66,14 @@ def _check(name, a, b, pa, pb):
     return operands
 
 
-def _launch(operands, with_payload: bool, with_keep: bool, caller: str):
-    """One launch of okt_merge; returns (keys, payload or None, keep or None)."""
+def _launch(operands, with_payload: bool, with_keep: bool, caller: str, out=None):
+    """One launch of okt_merge, into ``out`` where given; returns (keys,
+    payload or None, keep or None)."""
     a, b = operands[:2]
-    _kernels.require_cuda("merge", *operands)
+    _kernels.require_cuda("merge", *operands, *([] if out is None else [out]))
     na, nb = a.shape[0], b.shape[0]
-    out = torch.empty(na + nb, dtype=torch.int64, device=a.device)
+    if out is None:
+        out = torch.empty(na + nb, dtype=torch.int64, device=a.device)
     pout = torch.empty_like(out) if with_payload else None
     keep = torch.empty(na + nb, dtype=torch.bool, device=a.device) if with_keep else None
     if na + nb == 0:
@@ -95,14 +97,22 @@ def _launch(operands, with_payload: bool, with_keep: bool, caller: str):
     return out, pout, keep
 
 
-def merge(a, b, pa=None, pb=None, *, caller: str = "other"):
+def merge(a, b, pa=None, pb=None, *, caller: str = "other", out=None):
     """Merge ascending runs ``a`` and ``b`` (int64).  With payloads
     ``pa``/``pb`` (int64, one per key) returns (keys, payload), else
-    (keys, None).  ``caller`` names the launch in ``by_caller``."""
+    (keys, None).  ``caller`` names the launch in ``by_caller``.
+
+    out: None, or the int64 tensor of ``len(a) + len(b)`` that receives
+    the keys and is returned as them; it must not overlap ``a`` or ``b``,
+    and on a card it starts on a 16-byte boundary (an even offset into a
+    fresh allocation)."""
     operands = _check("merge", a, b, pa, pb)
+    if out is not None and (out.dtype != torch.int64 or out.shape != (a.shape[0] + b.shape[0],)):
+        raise TypeError("merge: out must be int64 of len(a) + len(b)")
     if a.device.type == "cpu":
-        return merge_plain(a, b, pa, pb)
-    keys, payload, _ = _launch(operands, pa is not None, False, caller)
+        keys, payload = merge_plain(a, b, pa, pb)
+        return (keys if out is None else out.copy_(keys)), payload
+    keys, payload, _ = _launch(operands, pa is not None, False, caller, out)
     return keys, payload
 
 

@@ -121,3 +121,34 @@ def intersection_size(a, b):
     equal adjacent pair of the merge."""
     keys, _ = merge(a, b, caller="join")
     return (keys[1:] == keys[:-1]).sum()
+
+
+def union_runs(buf, lengths):
+    """The union of ascending unique int64 runs that lie back to back at
+    the front of ``buf``, ``lengths`` long: (keys, heads), every key of
+    every run in ascending order and the mask of the first of each.
+
+    The runs merge pairwise, level by level, by K2 (caller ``union``):
+    ~6 levels for 50 runs, each key read and written once a level, from
+    ``buf`` into one spare buffer of its size and back in turn.  Each merge
+    writes at an even offset, where K2's output starts on a 16-byte
+    boundary, so ``buf`` holds ``sum(lengths) + len(lengths)`` keys; the odd
+    run of a level is copied across.  Empty runs take no part."""
+    runs = [r for r in buf[: sum(lengths)].split(list(lengths)) if r.shape[0]]
+    dst = torch.empty_like(buf)
+    while len(runs) > 1:
+        merged, off = [], 0
+        for pair in (runs[i : i + 2] for i in range(0, len(runs), 2)):
+            n = sum(r.shape[0] for r in pair)
+            out = dst[off : off + n]
+            if len(pair) == 2:
+                merge(*pair, caller="union", out=out)
+            else:
+                out.copy_(pair[0])
+            merged.append(out)
+            off += n + n % 2
+        runs, buf, dst = merged, dst, buf
+    keys = runs[0] if runs else buf[:0]
+    heads = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    torch.ne(keys[1:], keys[:-1], out=heads[1:])
+    return keys, heads
