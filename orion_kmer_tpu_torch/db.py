@@ -90,17 +90,18 @@ class KmerDb:
 
     # ---- bincode-compatible persistence -------------------------------
 
-    def to_bincode(self) -> bytes:
-        out = bytearray()
-        out += struct.pack("<B", self.k)
-        out += _U64.pack(len(self.references))
+    def _bincode_pieces(self):
+        """The bincode stream in order: the small prefixes as ``bytes``
+        and each set as a byte view of its own ``<u8`` array (no copy of
+        a contiguous ``uint64`` set on a little-endian host)."""
+        yield struct.pack("<B", self.k) + _U64.pack(len(self.references))
         for name, kmers in self.references.items():
             nb = name.encode("utf-8")
-            out += _U64.pack(len(nb))
-            out += nb
-            out += _U64.pack(len(kmers))
-            out += np.ascontiguousarray(kmers, dtype="<u8").tobytes()
-        return bytes(out)
+            yield _U64.pack(len(nb)) + nb + _U64.pack(len(kmers))
+            yield memoryview(np.ascontiguousarray(kmers, dtype="<u8")).cast("B")
+
+    def to_bincode(self) -> bytes:
+        return b"".join(self._bincode_pieces())
 
     @classmethod
     def from_bincode(cls, data: bytes, source: str = "<bytes>") -> "KmerDb":
@@ -139,9 +140,14 @@ class KmerDb:
             ) from e
 
     def save(self, path) -> None:
-        """Write the bincode to ``path`` under a ``db.save`` span."""
-        with spans.span("db.save"), open_output(path) as f:
-            f.write(self.to_bincode())
+        """Stream the bincode to ``path`` piece by piece, each set from
+        its own buffer, under a ``db.save`` span that counts the ``bytes``
+        (uncompressed) written."""
+        with spans.span("db.save") as sp, open_output(path) as f:
+            pieces = list(self._bincode_pieces())
+            sp.add("bytes", sum(map(len, pieces)))
+            for piece in pieces:
+                f.write(piece)
 
     @classmethod
     def load(cls, path) -> "KmerDb":

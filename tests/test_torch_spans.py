@@ -146,7 +146,7 @@ def test_build_and_query_keep_their_layers(clean, tmp_path, reads):
     assert sum(s.name == "engine.count_file" for s in got if s.call == build.id) == 2
     assert sum(s.name == "db.add" for s in got if s.call == build.id) == 2
     (save,) = [s for s in got if s.name == "db.save"]
-    assert save.parent == build.id and save.counts == {}
+    assert save.parent == build.id and save.counts == {"bytes": db.stat().st_size}
     parsed = sum(s.counts.get("positions", 0) for s in got if s.call == query.id and s.name == "ingest.parse")
     assert parsed == sum(p.codes.shape[0] for p in host.native_chunks(reads, K, normalize=False))
 
