@@ -49,9 +49,9 @@ Phases, in order; any failure raises and exits non-zero:
      substitutions, a few N runs; --gbp of sequence), in process, with the
      kernel launch counters reset just before it; its TSV and histogram
      byte-equal to the numpy oracle (oracle_reads_counts), its table
-     fetched by engine.fetch_table from the card and its tail written by
-     the one native pass (native.render_counts), neither np.unique's
-     histogram nor the host's sign flip taken; the same command at -m 1
+     fetched by staging.fetch_table from the card and its tail written by
+     the one native pass (native.render_counts), np.unique's histogram not
+     taken; the same command at -m 1
      and at -m above the largest count, at -t 1 and at the default, each
      against the oracle; one `tail: {...}` line (the fetch of the table
      from the card, and at -t 1 and the default the fused pass alone, the
@@ -979,11 +979,11 @@ def phase_kernels(np, torch, codec, dev, rng):
         keys = torch.randint(-(1 << 62), 1 << 62, (m,), device=dev)
         keys[: m // 4] = keys[m // 4 : 2 * (m // 4)].clone()
         keys[0] = (1 << 63) - 1
-        err = max(err, max_abs_err(torch, sort.sort_pairs(keys), sort.sort_pairs_plain(keys)))
+        err = max(err, max_abs_err(torch, sort.sort_pairs(keys), sort.sort_keys(keys)))
         if m < 12289:
             continue
         t_k = median_ms(torch, lambda: sort.sort_pairs(keys))
-        t_p = median_ms(torch, lambda: sort.sort_pairs_plain(keys))
+        t_p = median_ms(torch, lambda: sort.sort_keys(keys))
         t_l = median_ms(torch, lambda: torch.sort(keys))
         t_d = kernel_ms(torch, lambda: sort.sort_pairs(keys), "cluster_sort_kernel")
         t_b = bound_ms(m * 16)
@@ -1323,15 +1323,15 @@ def tsv_matches(np, path: Path, vals, counts, k: int, rows: int = 1 << 21) -> bo
 
 def tail_split(np, torch, dev, vals, counts, work: Path, thread_counts) -> dict:
     """The tail of `count -k 31 -m 2 --histogram` after its table, in
-    seconds: the table's fetch from the card (``engine.fetch_table`` of
+    seconds: the table's fetch from the card (``staging.fetch_table`` of
     the table put back on ``dev``; cold, then warm), then at each -t of ``thread_counts``
     the fused pass alone (``native.render_counts`` of the TSV into no
     file, with the histogram), the histogram's lines and the whole write
     of both files (``commands.count.write_counts_tsv``)."""
-    from orion_kmer_tpu_torch import engine
     from orion_kmer_tpu_torch.commands import count as count_cmd
     from orion_kmer_tpu_torch.ingest import native
     from orion_kmer_tpu_torch.keys import keys_from_u64
+    from orion_kmer_tpu_torch.staging import fetch_table
 
     keys, cnt = keys_from_u64(vals).to(dev), torch.from_numpy(counts).to(dev)
     # cold: torch's cache of pinned host memory emptied first, as a fresh
@@ -1345,7 +1345,7 @@ def tail_split(np, torch, dev, vals, counts, work: Path, thread_counts) -> dict:
             empty_host_cache()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        got = engine.fetch_table(keys, cnt)
+        got = fetch_table(keys, cnt)
         out["fetch_s"][name] = time.monotonic() - t0
         check(np.array_equal(got[0], vals) and np.array_equal(got[1], counts), "fetch_table == the table")
         del got
@@ -1423,13 +1423,14 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
 
     out, hist = work / "reads.tsv", work / "reads.hist"
     # the card's tail: the fetch and the fused pass counted, the plain
-    # paths (the host's sign flip, np.unique's histogram) made to fail
+    # path (np.unique's histogram) made to fail
+    from orion_kmer_tpu_torch import table
     from orion_kmer_tpu_torch.commands import count as count_cmd
     from orion_kmer_tpu_torch.ingest import native
 
     calls = {"fetch_table": [], "render_counts": []}
-    real = {"fetch_table": engine.fetch_table, "render_counts": native.render_counts,
-            "u64_from_keys": engine.u64_from_keys, "write_histogram": count_cmd.write_histogram}
+    real = {"fetch_table": table.fetch_table, "render_counts": native.render_counts,
+            "write_histogram": count_cmd.write_histogram}
 
     def counted(name):
         def call(*a):
@@ -1440,8 +1441,8 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     def refused(*a, **kw):
         raise AssertionError("the count's tail took a plain path on the card")
 
-    engine.fetch_table, native.render_counts = counted("fetch_table"), counted("render_counts")
-    engine.u64_from_keys = count_cmd.write_histogram = refused
+    table.fetch_table, native.render_counts = counted("fetch_table"), counted("render_counts")
+    count_cmd.write_histogram = refused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
@@ -1450,13 +1451,13 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
         rc = cli.main(["count", "-k", "31", "-m", "2", "--histogram", str(hist), "-i", str(fq), "-o", str(out)])
         torch.cuda.synchronize()
     finally:
-        engine.fetch_table, native.render_counts = real["fetch_table"], real["render_counts"]
-        engine.u64_from_keys, count_cmd.write_histogram = real["u64_from_keys"], real["write_histogram"]
+        table.fetch_table, native.render_counts = real["fetch_table"], real["render_counts"]
+        count_cmd.write_histogram = real["write_histogram"]
     wall = time.monotonic() - t0
     launches = read_counters()
     check(rc == 0, "count exit code")
     check(len(calls["fetch_table"]) >= 1 and all(a[0].device.type == "cuda" for a in calls["fetch_table"]),
-          "the count's table fetched from the card by engine.fetch_table")
+          "the count's table fetched from the card by staging.fetch_table")
     check(len(calls["render_counts"]) == 1 and calls["render_counts"][0][4:6] == (2, True),
           "the count's tail written by one native pass (-m 2, with the histogram)")
     peak = torch.cuda.max_memory_allocated(dev)

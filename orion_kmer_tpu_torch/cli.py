@@ -7,7 +7,7 @@ The same flags, help, ``-t``/``-v`` and error rendering as
 ``orion_kmer_tpu/cli.py`` (which mirrors the reference clap CLI,
 orion-kmer/src/cli.rs, and main.rs:7-16: log the outermost error, exit
 1).  ``count`` and ``build`` spread over several shards with
-``ORION_KMER_SHARDS=N`` (``engine._make_count_table``).
+``ORION_KMER_SHARDS=N`` (``engine.make_count_table``).
 
 ``--device`` picks where the work runs: ``cuda`` (the default) or
 ``cpu``.  Without a visible card the default fails with one error line

@@ -21,13 +21,13 @@ import logging
 import numpy as np
 import torch
 
-from ..engine import staged_batches
 from ..errors import ContextError, validate_k
 from ..host import CountAccumulator, _prefetch, batch_for
 from ..ingest.compress import TextOut, read_bytes
 from ..ingest.fastx import FastxParseError
 from ..keys import u64_from_keys
 from ..ops.sketch import pairwise_intersections, sketch_packed
+from ..staging import staged_batches
 from ..utils import track_progress_and_resources
 
 logger = logging.getLogger("orion_kmer_tpu_torch.sketch")

@@ -61,7 +61,7 @@ class KmerDb:
     def get_all_kmers_unified(self, device=None) -> np.ndarray:
         """Union of all reference sets, sorted (db_types.rs:43-48), under
         a ``db.union`` span; on a CUDA ``device`` it is merged there
-        (``engine.union_of_sets``)."""
+        (``ops.setops.union_of_sets``)."""
         return self._union(device, fetch=True)[0]
 
     def total_unique_kmers(self, device=None) -> int:
@@ -79,7 +79,7 @@ class KmerDb:
             return np.empty(0, dtype=np.uint64), 0
         with spans.span("db.union", keys=sum(s.shape[0] for s in sets)):
             if device is not None and str(device).startswith("cuda"):
-                from .engine import union_of_sets  # torch is loaded where a card runs
+                from .ops.setops import union_of_sets  # torch is loaded where a card runs
 
                 return union_of_sets(sets, device, fetch=fetch)
             union = sorted_unique(np.concatenate(sets))

@@ -1,21 +1,20 @@
 """Batched host -> device pipelines: counting (on one device, or over
 several shards through ``parallel/``) and the set joins.
 
-The torch counterpart of ``orion_kmer_tpu/engine.py``'s
-``DeviceCountTable``, ``count_file``, ``unique_from_file``,
-``query_file``/``query_records``, ``ClassifyJoiner`` and
-``intersection_size_host``, plus ``query_hits``, the per-read hit counts
-under ``query_file``, ``query_lines``, its ids as the query command
-writes them, and ``staged_batches``, which ``count_file`` and
-``commands.sketch.sketch_file`` share.  For counting, the host
-packs FASTA/FASTQ records into wire-format batches on a prefetch thread
-(``host.py``) and stages them to the device; the device extracts and
-sorts each batch into a raw run of canonical keys, accumulates runs in an
-LSM merge forest, run-length encodes once per flush, and folds each
-flush into a device-resident count table; the host sees data only when
-the table spills or at the end.  ``query_file`` streams its batches the
-same way (``query_batches``) and reads each batch's per-read hits one
-batch late.
+The torch counterpart of ``orion_kmer_tpu/engine.py``'s ``count_file``,
+``unique_from_file``, ``query_file``/``query_records``,
+``ClassifyJoiner`` and ``intersection_size_host``, plus ``query_hits``,
+the per-read hit counts under ``query_file``, and ``query_lines``, its
+ids as the query command writes them.  For counting, the host packs
+FASTA/FASTQ records into wire-format batches on a prefetch thread and
+stages them to the device (``staging.staged_batches``); the device
+extracts and sorts each batch into a raw run of canonical keys,
+accumulates runs in an LSM merge forest, run-length encodes once per
+flush, and folds each flush into a device-resident count table
+(``table.DeviceCountTable``, re-exported here); the host sees data only
+when the table spills or at the end.  ``query_file`` streams its batches
+the same way (``staging.query_batches``) and reads each batch's per-read
+hits one batch late.
 
 Everything runs on the ``device`` the caller passes: CUDA tensors go
 through the kernels of ``csrc/``, CPU tensors through their plain torch
@@ -27,331 +26,26 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Iterable, NamedTuple
+from typing import Iterable
 
 import numpy as np
 import torch
 
-from . import _kernels
 from .errors import ContextError
-from .host import (
-    CountAccumulator,
-    _bucket,
-    _prefetch,
-    _rebatch_records,
-    batch_for,
-    iter_packed_batches,
-    native_chunks,
-    pack_for_transfer,
-    parse_spans,
-    parse_threads,
-    stream_file_codes,
-)
+from .host import _bucket, _prefetch, batch_for, iter_packed_batches, parse_spans, stream_file_codes
 from .ingest import native
 from .ingest.fastx import FastxParseError, Record, parse_fastx_file
-from .keys import keys_from_u64, u64_from_keys
+from .keys import keys_from_u64
 from .ops import setops
-from .ops.compact import compact
-from .ops.count import combine_sorted_unique, merge_runs, rle_sorted, sort_canonical_packed
 from .ops.extract import extract_keys
+from .staging import PinnedRing, query_batches, stage_query, staged_batches
+from .table import DeviceCountTable
 from .utils import spans
 
 logger = logging.getLogger("orion_kmer_tpu_torch.engine")
 
-_SIGN_BIT = -(1 << 63)  # the flip of ``keys``' int64 order to u64 order
 
-
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A u32 wire array as an int32 tensor on ``device``: pinned and
-    copied without blocking on CUDA, a zero-copy view on the CPU."""
-    t = torch.from_numpy(arr.view(np.int32))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
-def fetch_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
-    """A count table's (flipped int64 keys, int64 counts) tensors -> (u64
-    values, int64 counts) on the host.
-
-    On a card the sign bit is flipped there, and both planes are copied
-    without blocking into pinned host memory, in flight at once, with one
-    synchronisation; the arrays returned own that memory.  A CPU tensor
-    takes the plain path: ``u64_from_keys`` and the counts' own memory.
-    An ``engine.fetch`` span counts the bytes of both planes."""
-    with spans.span("engine.fetch", bytes=16 * keys.shape[0]):
-        if keys.device.type == "cpu":
-            return u64_from_keys(keys), counts.numpy()
-        if keys.device.type != "cuda":
-            raise ValueError(f"fetch_table: tensors on {keys.device}, not cpu or cuda")
-        host_keys, host_counts = _pinned_copy(keys ^ _SIGN_BIT), _pinned_copy(counts)
-        torch.cuda.current_stream(keys.device).synchronize()
-        return host_keys.numpy().view(np.uint64), host_counts.numpy()
-
-
-def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
-    """A card's tensor copied into pinned host memory without blocking;
-    the caller synchronises before reading it."""
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
-
-
-def _sets_on_device(sets: list[np.ndarray], device: torch.device) -> torch.Tensor:
-    """Sorted unique u64 sets, back to back in one int64 buffer on
-    ``device``, flipped there (``keys_from_u64``'s order), with one spare
-    key a set after them (``setops.union_runs``).  Each set is copied into
-    its slice as it is: a ``view``, no host copy."""
-    n = sum(s.shape[0] for s in sets)
-    buf = torch.empty(n + len(sets), dtype=torch.int64, device=device)
-    off = 0
-    for s in sets:
-        vals = torch.from_numpy(np.ascontiguousarray(s, dtype=np.uint64).view(np.int64))
-        buf[off : off + vals.shape[0]].copy_(vals)
-        off += vals.shape[0]
-    buf[:n].bitwise_xor_(_SIGN_BIT)
-    return buf
-
-
-def union_of_sets(sets: list[np.ndarray], device, fetch: bool = True) -> tuple[np.ndarray | None, int]:
-    """The union of sorted unique u64 sets, merged on ``device`` by a K2
-    forest (``setops.union_runs``): (its ascending u64 values, or None
-    without ``fetch``; its size, read with one synchronisation).
-
-    With ``fetch`` K3 compacts the heads, and they come back with the sign
-    flipped back, on a card into pinned memory as ``fetch_table`` does."""
-    device = torch.device(device)
-    keys, heads = setops.union_runs(_sets_on_device(sets, device), [s.shape[0] for s in sets])
-    if not fetch:
-        return None, int(heads.sum())
-    (ukeys,), n_u = compact([keys], heads)
-    del keys, heads  # the merged buffer goes before the fetch
-    m = int(n_u)
-    ukeys = ukeys[:m].bitwise_xor_(_SIGN_BIT)
-    if device.type == "cpu":
-        return ukeys.numpy().view(np.uint64), m
-    host = _pinned_copy(ukeys)
-    torch.cuda.current_stream(device).synchronize()
-    return host.numpy().view(np.uint64), m
-
-
-class DeviceCountTable:
-    """Device-resident count accumulation as an LSM-style merge forest.
-
-    Each batch becomes a raw ascending weight-1 key run on the device;
-    runs of equal capacity merge pairwise (K2) into a run of double
-    capacity, binary-counter style, so every key takes part in
-    O(log(total / batch)) merges.  Duplicates ride along until the flush,
-    which run-length encodes each run once and folds it into the
-    device-resident table; past DEVICE_TABLE_MAX entries the table spills
-    to the host accumulator and restarts.
-    """
-
-    FLUSH_WINDOWS = 1 << 28
-
-    # Device-table spill bound (entries of 16 B: key + count).
-    DEVICE_TABLE_MAX = int(os.environ.get("ORION_KMER_DEVICE_TABLE_MAX", str(1 << 27)))
-
-    def __init__(self, k: int, device):
-        self.k = k
-        self.device = torch.device(device)
-        # forest level -> raw run (sorted keys, n_valid as a 0-d device tensor)
-        self._runs: dict[int, tuple] = {}
-        self._windows_since_flush = 0
-        self._acc = CountAccumulator()
-        # device-resident accumulated table: (keys, counts), exact length
-        self._table: tuple | None = None
-        # launches and exact element counts per stage, from host-side
-        # lengths alone (no device fetch); ``ShardedCountTable.stats`` sums
-        # them over its shards
-        self.stats = dict.fromkeys(
-            ("merge_dispatches", "merge_bytes", "flush_dispatches", "rle_elements",
-             "fold_dispatches", "fold_elements", "spills", "host_link_bytes"), 0
-        )
-
-    def update(self, codes: np.ndarray):
-        """Fold one batch of 2-bit codes (255 = invalid) in."""
-        n = codes.shape[0]
-        if n == 0:
-            return
-        size = _bucket(n)
-        lanes, inv_words = pack_for_transfer(codes, size)
-        self.update_packed(
-            to_device(lanes, self.device), to_device(inv_words, self.device), size, n
-        )
-
-    def update_packed(self, lanes, inv_words, size: int, n_windows: int):
-        """Fold one wire-format batch in (size = 16 * len(lanes) positions,
-        of which the first n_windows are real), under an ``engine.update``
-        span: the host's cost of enqueueing a batch."""
-        with spans.span("engine.update"):
-            self.add_run(sort_canonical_packed(lanes, inv_words, self.k, n_windows), size)
-            self._windows_since_flush += n_windows
-            if self._windows_since_flush >= self.FLUSH_WINDOWS:
-                self.flush()
-
-    def add_run(self, run, level: int):
-        """Add one ready raw run (ascending keys on this device, n_valid)
-        to the forest at ``level``, the batch's bucket: runs of one level
-        merge (K2, any lengths) into the next, binary-counter style.  The
-        caller decides when to flush."""
-        while level in self._runs:
-            prev = self._runs.pop(level)
-            self.stats["merge_dispatches"] += 1
-            self.stats["merge_bytes"] += 8 * (prev[0].shape[0] + run[0].shape[0])
-            run = merge_runs(prev, run)
-            level *= 2
-        self._runs[level] = run
-
-    def _fold_into_table(self, keys, counts):
-        """Merge one flush's RLE output into the device-resident table,
-        spilling to the host accumulator at the capacity bound."""
-        self.stats["fold_dispatches"] += 1
-        if self._table is not None and self._table[0].shape[0] + keys.shape[0] > self.DEVICE_TABLE_MAX:
-            self._spill()
-        if self._table is None:
-            self.stats["fold_elements"] += keys.shape[0]
-            self._table = (keys, counts)
-            return
-        t_keys, t_counts = self._table
-        self.stats["fold_elements"] += t_keys.shape[0] + keys.shape[0]
-        self._table = combine_sorted_unique(t_keys, t_counts, keys, counts)
-
-    def _spill(self):
-        """Fetch the device table into the host accumulator and reset."""
-        if self._table is None:
-            return
-        keys, counts = self._table
-        self.stats["spills"] += 1
-        self.stats["host_link_bytes"] += 16 * keys.shape[0]
-        if keys.shape[0]:
-            self._acc.add(*fetch_table(keys, counts))
-        self._table = None
-
-    def flush(self):
-        with spans.span("engine.flush"):
-            for cap in sorted(self._runs):
-                keys, n_valid = self._runs[cap]
-                self.stats["flush_dispatches"] += 1
-                self.stats["rle_elements"] += keys.shape[0]
-                ukeys, ucnt = rle_sorted(keys, n_valid)
-                if ukeys.shape[0]:
-                    self._fold_into_table(ukeys, ucnt)
-            self._runs = {}
-            self._windows_since_flush = 0
-
-    def result(self) -> tuple[np.ndarray, np.ndarray]:
-        """(u64 values ascending, int64 counts) of everything folded in."""
-        self.flush()
-        self._spill()
-        return self._acc.result()
-
-    def warm(self) -> None:
-        """Ready the device for this k before the first real batch: load
-        the kernel library (an nvcc build on a fresh checkout) and run one
-        small batch through a scratch table, so each kernel and torch op of
-        the path has been loaded and launched once.  This table stays
-        empty."""
-        if self.device.type == "cuda":
-            _kernels.lib()
-        scratch = DeviceCountTable(self.k, self.device)
-        rng = np.random.default_rng(self.k)
-        scratch.update(rng.integers(0, 4, 1 << 16, dtype=np.uint8))
-        scratch.result()
-
-
-class PinnedRing:
-    """A few pinned host buffers that wire batches (and a query batch's
-    record starts) are packed straight into and copied from without
-    blocking; a buffer is packed again only once the copy that last read
-    it has completed (its CUDA event).  A batch is packed in ``parts``
-    slices of whole wire words at once (the parser threads, -t), on
-    threads of the ring's own: the native packer releases the GIL."""
-
-    SLOTS = 3
-
-    def __init__(self, device: torch.device, parts: int = 1):
-        from concurrent.futures import ThreadPoolExecutor
-
-        self.device = device
-        self.parts = parts
-        self._slots: list = [None] * self.SLOTS
-        self._next = 0
-        self._pool = ThreadPoolExecutor(parts, thread_name_prefix="okt-pack") if parts > 1 else None
-
-    def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-
-    def _pack(self, codes: np.ndarray, size: int, lanes: np.ndarray, inv: np.ndarray) -> None:
-        if self._pool is None:
-            pack_for_transfer(codes, size, out=(lanes, inv))
-            return
-        # slice edges on multiples of 32 positions: one invalid word, two lanes
-        step = -(-size // (32 * self.parts)) * 32
-        parts = [
-            self._pool.submit(
-                pack_for_transfer, codes[lo : lo + step], min(step, size - lo),
-                (lanes[lo // 16 : (lo + step) // 16], inv[lo // 32 : (lo + step) // 32]),
-            )
-            for lo in range(0, size, step)
-        ]
-        for f in parts:
-            f.result()
-
-    def stage(self, codes: np.ndarray, size: int, starts: np.ndarray | None = None):
-        """Pack ``codes`` at wire size ``size`` into the next buffer and
-        start its copy to the device: (lanes, invalid words) there, and
-        ``starts`` (int64) copied beside them when given.  Under an
-        ``ingest.stage`` span, with the wait for the slot's last copy."""
-        with spans.span("ingest.stage"):
-            i = self._next
-            self._next = (i + 1) % self.SLOTS
-            slot = self._slots[i]
-            if slot is not None:
-                slot[2].synchronize()
-            if slot is None or slot[0].shape[0] < size // 16:
-                slot = self._slots[i] = [
-                    torch.empty(size // 16, dtype=torch.int32, pin_memory=True),
-                    torch.empty(size // 32, dtype=torch.int32, pin_memory=True),
-                    torch.cuda.Event(),
-                    None if slot is None else slot[3],
-                ]
-            lanes, inv, done = slot[0][: size // 16], slot[1][: size // 32], slot[2]
-            self._pack(codes, size, lanes.numpy().view(np.uint32), inv.numpy().view(np.uint32))
-            staged = lanes.to(self.device, non_blocking=True), inv.to(self.device, non_blocking=True)
-            if starts is not None:
-                m = starts.shape[0]
-                if slot[3] is None or slot[3].shape[0] < m:
-                    slot[3] = torch.empty(_bucket(m), dtype=torch.int64, pin_memory=True)
-                slot[3].numpy()[:m] = starts
-                staged += (slot[3][:m].to(self.device, non_blocking=True),)
-            done.record(torch.cuda.current_stream(self.device))
-            return staged
-
-
-def staged_batches(path, k: int, normalize: bool, batch: int, device):
-    """Parse, wire-pack and stage batches to the device; run on the
-    prefetch thread, so the host-to-device copy is enqueued before the
-    consumer needs the batch.  On CUDA the batches are packed into a
-    ``PinnedRing``; on the CPU the tensors are views of the packed
-    arrays."""
-    ring = PinnedRing(device, parse_threads()) if device.type == "cuda" else None
-    try:
-        for codes in parse_spans(stream_file_codes(path, k, normalize, batch), k):
-            n = codes.shape[0]
-            size = _bucket(n)
-            if ring is None:
-                lanes, inv_words = pack_for_transfer(codes, size)
-                yield to_device(lanes, device), to_device(inv_words, device), size, n
-            else:
-                yield *ring.stage(codes, size), size, n
-    finally:
-        if ring is not None:
-            ring.close()
-
-
-def _make_count_table(k: int, device):
+def make_count_table(k: int, device):
     """The count table for ``device``: ``DeviceCountTable`` on one device,
     ``parallel.ShardedCountTable`` over several shards.
 
@@ -383,12 +77,12 @@ def count_file(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Canonical k-mer counts of one file on ``device``: native parse ->
     prefetch (parse + pack + stage) -> device-resident accumulation ->
-    one fetch.  Spread over several shards when ``_make_count_table`` says
+    one fetch.  Spread over several shards when ``make_count_table`` says
     so.  Returns (u64 values ascending, int64 counts).  Under an
     ``engine.count_file`` span."""
     with spans.span("engine.count_file"):
         device = torch.device(device)
-        table = _make_count_table(k, device)
+        table = make_count_table(k, device)
         batch = batch_for(k, device)
         if isinstance(table, DeviceCountTable):
             batches = staged_batches(path, k, normalize, batch, device)
@@ -460,26 +154,17 @@ def _batch_hits(lanes, inv_words, size: int, n: int, starts, db_keys, k: int):
     return prefix[hi] - prefix[starts]
 
 
-def _staged_plain(piece: np.ndarray, starts: np.ndarray, device):
-    """One query batch packed and copied to ``device`` without a ring:
-    (lanes, invalid words, size, n, starts clamped at 0)."""
-    n = piece.shape[0]
-    size = -(-n // 32) * 32
-    lanes, inv_words = pack_for_transfer(piece, size)
-    lo = torch.from_numpy(np.maximum(starts, 0).astype(np.int64)).to(device)
-    return to_device(lanes, device), to_device(inv_words, device), size, n, lo
-
-
 def _records_hits(db_keys, records: list[Record], k: int, device) -> np.ndarray:
     """Per-record window hits of parsed records (raw bytes, no
     normalization), in memory."""
     hits = np.zeros(len(records), dtype=np.int64)
+    ring = PinnedRing(device)  # one part: no pool to close
     for pb in iter_packed_batches(
         records, k, normalize=False, batch_positions=batch_for(k, device), with_owner=True
     ):
         nr = len(pb.record_ids)
         starts = np.searchsorted(pb.owner, np.arange(nr))
-        batch_hits = _batch_hits(*_staged_plain(pb.codes, starts, device), db_keys, k)
+        batch_hits = _batch_hits(*stage_query(ring, pb.codes, starts), db_keys, k)
         np.add.at(hits, pb.first_rid + np.arange(nr), batch_hits.cpu().numpy())
     return hits
 
@@ -500,53 +185,6 @@ def query_records(
     records = list(records)
     hits = _records_hits(_db_on_device(db_vals, device), records, k, device)
     return _passing([r.id for r in records], [len(r.seq) for r in records], hits, k, min_hits)
-
-
-class QueryBatch(NamedTuple):
-    """One query batch as ``query_batches`` stages it."""
-
-    lanes: torch.Tensor | None  # int32 wire lanes on the device; None: no positions, records only
-    inv_words: torch.Tensor | None  # int32 invalid words on the device
-    size: int  # wire positions, a multiple of 32
-    n: int  # real positions
-    starts: torch.Tensor | None  # int64 batch-local record starts, clamped at 0, on the device
-    first_rid: int  # global index of the batch's first record
-    records: list  # (id blob, id ends, lengths) of each chunk parsed since the previous batch
-
-
-def query_batches(path, k: int, batch: int, device):
-    """Parse (raw bytes, on the -t parser threads), cut
-    (``host._rebatch_records``), wire-pack and stage the query batches of
-    a file; run on the prefetch thread, so the host-to-device copies are
-    enqueued before the consumer needs them, as ``staged_batches`` does
-    for counting.  On CUDA a batch and its record starts are packed into a
-    ``PinnedRing`` slot (the pack split over the parser threads) and
-    copied without blocking; on the CPU the tensors are views of the
-    packed arrays."""
-    device = torch.device(device)
-    threads = parse_threads()
-    ring = PinnedRing(device, threads) if device.type == "cuda" else None
-    chunks = native_chunks(path, k, normalize=False, threads=threads)
-    if threads > 1:
-        chunks = _prefetch(chunks, depth=2)  # the pieces checked and ordered on a thread of their own
-    stream = ((p.codes, p.rec_ends, (p.id_blob, p.id_ends)) for p in chunks)
-    cuts = parse_spans(_rebatch_records(stream, k, batch), k, lambda cut: cut[0].shape[0])
-    try:
-        for piece, starts, rids, new in cuts:
-            records = [(blob, ends, lens) for (blob, ends), lens in new]
-            if piece.shape[0] == 0:
-                yield QueryBatch(None, None, 0, 0, None, 0, records)
-            elif ring is None:
-                lanes, inv_words, size, n, lo = _staged_plain(piece, starts, device)
-                yield QueryBatch(lanes, inv_words, size, n, lo, int(rids[0]), records)
-            else:
-                n = piece.shape[0]
-                size = -(-n // 32) * 32
-                lanes, inv_words, lo = ring.stage(piece, size, np.maximum(starts, 0))
-                yield QueryBatch(lanes, inv_words, size, n, lo, int(rids[0]), records)
-    finally:
-        if ring is not None:
-            ring.close()
 
 
 class _LateHits:

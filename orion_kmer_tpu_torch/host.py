@@ -56,6 +56,12 @@ def _bucket(n: int, minimum: int = _MIN_BUCKET) -> int:
     return max(minimum, 1 << max(n - 1, 1).bit_length())
 
 
+def wire_size(n: int) -> int:
+    """``n`` positions rounded up to whole invalid words (32 positions a
+    word): the wire size of a query batch and of a shard's block."""
+    return -(-n // 32) * 32
+
+
 def _pad(arr: np.ndarray, size: int, fill) -> np.ndarray:
     if arr.shape[0] == size:
         return arr

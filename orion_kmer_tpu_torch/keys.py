@@ -22,6 +22,13 @@ SIGN = np.uint64(1 << 63)
 SENTINEL_KEY = (1 << 63) - 1  # u64 all-ones, flipped
 
 
+def flip(t: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Flipped int64 keys <-> the bits of their u64 values, on ``t``'s
+    device: XOR 2^63, into ``out`` where given (``t`` itself flips in
+    place)."""
+    return torch.bitwise_xor(t, -(1 << 63), out=out)
+
+
 def keys_from_u64(vals: np.ndarray) -> torch.Tensor:
     """u64 numpy values -> flipped int64 tensor."""
     v = np.asarray(vals, dtype=np.uint64) ^ SIGN

@@ -29,9 +29,11 @@ sentinel (a genuine T^32 in a hand-made DB at k = 32).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..keys import SENTINEL_KEY
+from ..keys import SENTINEL_KEY, flip
+from ..staging import to_host
 from .compact import compact, compact_positions
 from .merge import merge
 
@@ -152,3 +154,37 @@ def union_runs(buf, lengths):
     heads = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
     torch.ne(keys[1:], keys[:-1], out=heads[1:])
     return keys, heads
+
+
+def _sets_on_device(sets: list[np.ndarray], device: torch.device) -> torch.Tensor:
+    """Sorted unique u64 sets, back to back in one int64 buffer on
+    ``device``, flipped there (``keys_from_u64``'s order), with one spare
+    key a set after them (``union_runs``).  Each set is copied into its
+    slice as it is: a ``view``, no host copy."""
+    n = sum(s.shape[0] for s in sets)
+    buf = torch.empty(n + len(sets), dtype=torch.int64, device=device)
+    off = 0
+    for s in sets:
+        vals = torch.from_numpy(np.ascontiguousarray(s, dtype=np.uint64).view(np.int64))
+        buf[off : off + vals.shape[0]].copy_(vals)
+        off += vals.shape[0]
+    flip(buf[:n], out=buf[:n])
+    return buf
+
+
+def union_of_sets(sets: list[np.ndarray], device, fetch: bool = True) -> tuple[np.ndarray | None, int]:
+    """The union of sorted unique u64 sets, merged on ``device`` by a K2
+    forest (``union_runs``): (its ascending u64 values, or None without
+    ``fetch``; its size, read with one synchronisation).
+
+    With ``fetch`` K3 compacts the heads, and they come back with the sign
+    flipped back (``staging.to_host``)."""
+    device = torch.device(device)
+    keys, heads = union_runs(_sets_on_device(sets, device), [s.shape[0] for s in sets])
+    if not fetch:
+        return None, int(heads.sum())
+    (ukeys,), n_u = compact([keys], heads)
+    del keys, heads  # the merged buffer goes before the fetch
+    m = int(n_u)
+    ukeys = flip(ukeys[:m], out=ukeys[:m])
+    return to_host(ukeys)[0].view(np.uint64), m

@@ -5,7 +5,7 @@ Replaces ``orion_kmer_tpu/ops/sort_pallas.py::_sort_kernel``, reached
 through ``_run_network`` from ``sort_pairs``.  The JAX entry sorts (hi, lo)
 u32 pairs in u64 order; here a key is the flipped int64 of ``keys.py``, so
 the same order is signed int64 order.  Like the JAX entry, ``sort_pairs``
-hands sizes above ``MAX_SORT_N`` to the library sort (``torch.sort``).
+hands sizes above ``MAX_SORT_N`` to the library sort (``sort_keys``).
 No command of the JAX package reaches this kernel; only its own entry does.
 """
 
@@ -19,22 +19,24 @@ MAX_SORT_N = 1 << 14
 launches = 0  # kernel launches since the last reset
 
 
-def sort_pairs_plain(keys):
-    """Plain torch version of ``sort_pairs``."""
+def sort_keys(keys):
+    """``keys`` sorted ascending by the library sort, values only: the
+    plain torch version of ``sort_pairs``, and the port's one call of
+    ``torch.sort`` for the sorted keys alone."""
     return torch.sort(keys).values
 
 
 def sort_pairs(keys):
     """``keys`` (1-d int64) sorted ascending: the K4 block sort on CUDA
-    for 1 <= n <= MAX_SORT_N, ``torch.sort`` above it."""
+    for 1 <= n <= MAX_SORT_N, ``sort_keys`` above it."""
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise TypeError("sort_pairs: keys must be 1-d int64")
     if keys.device.type == "cpu":
-        return sort_pairs_plain(keys)
+        return sort_keys(keys)
     _kernels.require_cuda("sort_pairs", keys)
     n = keys.shape[0]
     if n > MAX_SORT_N:
-        return torch.sort(keys).values
+        return sort_keys(keys)
     out = torch.empty_like(keys)
     if n == 0:
         return out

@@ -36,14 +36,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine import fetch_table, to_device
-from ..host import CountAccumulator
+from ..host import CountAccumulator, wire_size
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
 from ..ops.extract import extract_keys
+from ..ops.sort import sort_keys
+from ..staging import fetch_table, to_device, to_host
 from .mesh import make_mesh
-from .sharded import fetch_counts, shard_blocks
-from .streaming import _pack_blocks
+from .sharded import _pack_blocks, fetch_counts, shard_blocks
 
 logger = logging.getLogger("orion_kmer_tpu_torch.parallel.distributed")
 
@@ -134,9 +134,7 @@ def _to_comm(t: torch.Tensor, comm: torch.device) -> torch.Tensor:
         return t
     if comm.type == "cuda":
         return t.to(comm, non_blocking=True)
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    return host
+    return torch.from_numpy(to_host(t)[0])
 
 
 def _all_gather_ragged(t: torch.Tensor, comm: torch.device) -> torch.Tensor:
@@ -186,7 +184,7 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
     mine = np.arange(first, first + len(mesh))
 
     blk_codes, blk_invalid, stride = shard_blocks(codes, invalid, k, S)
-    block = -(-stride // 32) * 32  # the wire format packs 32 positions a word
+    block = wire_size(stride)
     lanes, inv_words = _pack_blocks(blk_codes.reshape(S, -1)[mine], blk_invalid.reshape(S, -1)[mine], block)
     bufs, counts = [], []
     for s, dev in enumerate(mesh):
@@ -223,7 +221,7 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
         segments += [pieces[i * len(mesh) + o].to(dev, non_blocking=True) for i in range(len(remote_sources))]
         received = torch.cat(segments)
         ukeys, ucnt = rle_sorted(
-            torch.sort(received).values, torch.full((), received.shape[0], dtype=torch.int64, device=dev)
+            sort_keys(received), torch.full((), received.shape[0], dtype=torch.int64, device=dev)
         )
         results.append((_to_comm(ukeys, comm), _to_comm(ucnt, comm)))
     all_keys = _all_gather_ragged(torch.cat([u for u, _ in results]), comm)

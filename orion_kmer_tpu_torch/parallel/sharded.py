@@ -22,13 +22,18 @@ here: a skewed batch is exact in one pass.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..engine import fetch_table
-from ..host import CountAccumulator
+from ..host import CountAccumulator, pack_for_transfer, wire_size
+from ..ingest import native
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
+from ..ops.extract import extract_keys
+from ..ops.sort import sort_keys
+from ..staging import fetch_table, to_device
 
 
 def shard_blocks(codes: np.ndarray, invalid: np.ndarray, k: int, n_shards: int):
@@ -100,9 +105,66 @@ def exchange(bufs: list[list[torch.Tensor]], table: np.ndarray, mesh: list[torch
     return received, moved
 
 
+def _pack_blocks(blk_codes: np.ndarray, blk_invalid: np.ndarray, block: int):
+    """Pack S (row, stride) code blocks + invalid masks into wire-format
+    rows of ``block`` positions: one native call for all rows, numpy
+    fallback otherwise."""
+    S, stride = blk_codes.shape
+    lanes = np.empty((S, block // 16), dtype=np.uint32)
+    inv_words = np.empty((S, block // 32), dtype=np.uint32)
+    if native.available():
+        lib = native._load()
+        codes_c = np.ascontiguousarray(blk_codes, dtype=np.uint8)
+        inv_c = np.ascontiguousarray(blk_invalid, dtype=np.uint8)
+        rc = lib.okt_pack_wire_multi(
+            codes_c.ctypes.data_as(ctypes.c_void_p),
+            inv_c.ctypes.data_as(ctypes.c_void_p),
+            S,
+            stride,
+            block,
+            lanes.ctypes.data_as(ctypes.c_void_p),
+            inv_words.ctypes.data_as(ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise native.NativeParseError(int(rc), "<pack_wire_multi>")
+        return lanes, inv_words
+    for s in range(S):
+        row = np.where(blk_invalid[s], 255, blk_codes[s]).astype(np.uint8)
+        lanes[s], inv_words[s] = pack_for_transfer(row, block)
+    return lanes, inv_words
+
+
+def route_and_sort(codes: np.ndarray, invalid: np.ndarray, k: int, mesh: list[torch.device]):
+    """One batch through extraction, routing and the receivers' sort.
+
+    Every shard's block is staged and its K1 and K3 work enqueued before
+    the routed counts are fetched (one transfer per distinct device), so
+    the shards' devices work side by side.  Returns (runs, table, moved):
+    per shard a raw run (its owned keys ascending, their number as a 0-d
+    tensor on its device), the S x S table of routed counts (row =
+    source) and the bytes that changed device."""
+    S = len(mesh)
+    blk_codes, blk_invalid, stride = shard_blocks(codes, invalid, k, S)
+    block = wire_size(stride)
+    lanes, inv_words = _pack_blocks(blk_codes.reshape(S, -1), blk_invalid.reshape(S, -1), block)
+    bufs, counts = [], []
+    for s, dev in enumerate(mesh):
+        keys, _ = extract_keys(to_device(lanes[s], dev), to_device(inv_words[s], dev), k, block)
+        b, c = partition(keys, S)
+        bufs.append(b)
+        counts.append(c)
+    table = fetch_counts(counts, mesh)
+    received, moved = exchange(bufs, table, mesh)
+    runs = [
+        (sort_keys(r), torch.full((), r.shape[0], dtype=torch.int64, device=r.device))
+        for r in received
+    ]
+    return runs, table, moved
+
+
 def _assemble(parts: list[tuple[torch.Tensor, torch.Tensor]]):
     """Per-shard (unique keys, counts) -> (vals u64, counts int64), value
-    sorted: each shard fetched (``engine.fetch_table``), then the shards'
+    sorted: each shard fetched (``staging.fetch_table``), then the shards'
     sorted runs merged, which the ownership keeps disjoint."""
     acc = CountAccumulator()
     for keys, cnt in parts:
@@ -118,7 +180,6 @@ def sharded_count(codes: np.ndarray, invalid: np.ndarray, k: int, mesh=None):
     each distinct k-mer on exactly one shard; the exchange is of exact
     lengths.  Returns (vals uint64, counts int64), value sorted."""
     from .mesh import make_mesh
-    from .streaming import route_and_sort
 
     if mesh is None:
         mesh = make_mesh()

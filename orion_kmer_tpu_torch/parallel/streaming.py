@@ -2,13 +2,13 @@
 DeviceCountTable.
 
 The torch counterpart of ``orion_kmer_tpu/parallel/streaming.py``.  The
-single-device pipeline (``engine.DeviceCountTable``) generalizes to S
+single-device pipeline (``table.DeviceCountTable``) generalizes to S
 shards with the same stages:
 
   1. per batch, every shard extracts the canonical keys of its halo-split
      block (K1), splits them by hash-range owner (one K3 pass in route
      mode for all S destinations) and ships each destination its exact
-     segment; every shard sorts what it received (``torch.sort``);
+     segment; every shard sorts what it received (``ops.sort.sort_keys``);
   2. each shard accumulates its sorted runs in its own merge forest (K2):
      a shard merges only its own hash range, so nothing crosses shards
      after the routing;
@@ -16,7 +16,7 @@ shards with the same stages:
      its device-resident table (K3, K2); the host accumulator merges the
      shards' disjoint tables at a spill and at the end.
 
-A shard is an ``engine.DeviceCountTable`` on the shard's device: the JAX
+A shard is a ``table.DeviceCountTable`` on the shard's device: the JAX
 package re-implements forest, flush, fold and spill on ``[S, cap]`` planes
 because ``shard_map`` needs them; here a Python loop over the shards
 does.  All k take one int64 key path: the JAX package's single-plane and
@@ -26,91 +26,28 @@ carried over.
 
 from __future__ import annotations
 
-import ctypes
-import os
-
 import numpy as np
 import torch
 
-from ..engine import DeviceCountTable, to_device
-from ..host import CountAccumulator, _bucket, pack_for_transfer
-from ..ingest import native
-from ..ops.compact import partition
-from ..ops.extract import extract_keys
+from ..host import CountAccumulator, _bucket
+from ..table import DeviceCountTable
 from .mesh import make_mesh
-from .sharded import exchange, fetch_counts, shard_blocks
-
-
-def _pack_blocks(blk_codes: np.ndarray, blk_invalid: np.ndarray, block: int):
-    """Pack S (row, stride) code blocks + invalid masks into wire-format
-    rows of ``block`` positions: one native call for all rows, numpy
-    fallback otherwise."""
-    S, stride = blk_codes.shape
-    lanes = np.empty((S, block // 16), dtype=np.uint32)
-    inv_words = np.empty((S, block // 32), dtype=np.uint32)
-    if native.available():
-        lib = native._load()
-        codes_c = np.ascontiguousarray(blk_codes, dtype=np.uint8)
-        inv_c = np.ascontiguousarray(blk_invalid, dtype=np.uint8)
-        rc = lib.okt_pack_wire_multi(
-            codes_c.ctypes.data_as(ctypes.c_void_p),
-            inv_c.ctypes.data_as(ctypes.c_void_p),
-            S,
-            stride,
-            block,
-            lanes.ctypes.data_as(ctypes.c_void_p),
-            inv_words.ctypes.data_as(ctypes.c_void_p),
-        )
-        if rc != 0:
-            raise native.NativeParseError(int(rc), "<pack_wire_multi>")
-        return lanes, inv_words
-    for s in range(S):
-        row = np.where(blk_invalid[s], 255, blk_codes[s]).astype(np.uint8)
-        lanes[s], inv_words[s] = pack_for_transfer(row, block)
-    return lanes, inv_words
-
-
-def route_and_sort(codes: np.ndarray, invalid: np.ndarray, k: int, mesh: list[torch.device]):
-    """One batch through extraction, routing and the receivers' sort.
-
-    Every shard's block is staged and its K1 and K3 work enqueued before
-    the routed counts are fetched (one transfer per distinct device), so
-    the shards' devices work side by side.  Returns (runs, table, moved):
-    per shard a raw run (its owned keys ascending, their number as a 0-d
-    tensor on its device), the S x S table of routed counts (row =
-    source) and the bytes that changed device."""
-    S = len(mesh)
-    blk_codes, blk_invalid, stride = shard_blocks(codes, invalid, k, S)
-    block = -(-stride // 32) * 32  # the wire format packs 32 positions a word
-    lanes, inv_words = _pack_blocks(blk_codes.reshape(S, -1), blk_invalid.reshape(S, -1), block)
-    bufs, counts = [], []
-    for s, dev in enumerate(mesh):
-        keys, _ = extract_keys(to_device(lanes[s], dev), to_device(inv_words[s], dev), k, block)
-        b, c = partition(keys, S)
-        bufs.append(b)
-        counts.append(c)
-    table = fetch_counts(counts, mesh)
-    received, moved = exchange(bufs, table, mesh)
-    runs = [
-        (torch.sort(r).values, torch.full((), r.shape[0], dtype=torch.int64, device=r.device))
-        for r in received
-    ]
-    return runs, table, moved
+from .sharded import route_and_sort
 
 
 class ShardedCountTable:
     """Streaming count accumulation over the shards of a mesh.
 
-    The sharded analog of ``engine.DeviceCountTable``: call ``update``
+    The sharded analog of ``table.DeviceCountTable``: call ``update``
     per host batch, ``result`` once.  Every FLUSH_WINDOWS positions the
     shards flush their forests into their device tables, which bounds
     device memory as the single table does.
     """
 
-    FLUSH_WINDOWS = 1 << 28
+    FLUSH_WINDOWS = DeviceCountTable.FLUSH_WINDOWS
 
-    # Per-shard device-table spill bound (entries), the single table's knob.
-    DEVICE_TABLE_MAX = int(os.environ.get("ORION_KMER_DEVICE_TABLE_MAX", str(1 << 27)))
+    # Per-shard device-table spill bound (entries), the single table's.
+    DEVICE_TABLE_MAX = DeviceCountTable.DEVICE_TABLE_MAX
 
     def __init__(self, k: int, mesh: list[torch.device] | None = None):
         self.k = k

@@ -108,7 +108,7 @@ def serve(socket_path, device="cuda", warm_ks=(), on_ready=None) -> None:
     ``shutdown``.
 
     ``warm_ks``: on a CUDA device, the count table that requests will use
-    (``engine._make_count_table``: one device or sharded) runs its ``warm``
+    (``engine.make_count_table``: one device or sharded) runs its ``warm``
     for each of those k (the kernel library's load and small batches)
     BEFORE the socket is bound, so the socket's existence is the
     readiness signal: a client that can connect never absorbs the warm-up
@@ -123,11 +123,11 @@ def serve(socket_path, device="cuda", warm_ks=(), on_ready=None) -> None:
         os.unlink(path)
     if warm_ks:
         if device.type == "cuda":
-            from .engine import _make_count_table
+            from .engine import make_count_table
 
             for k in warm_ks:
                 # the single table or, under ORION_KMER_SHARDS, the sharded one
-                _make_count_table(int(k), device).warm()
+                make_count_table(int(k), device).warm()
                 print(f"[serve] warmed the count path for k={k}", file=sys.stderr)
         else:
             print("[serve] warm-up skipped (CPU device)", file=sys.stderr)

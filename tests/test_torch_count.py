@@ -11,7 +11,7 @@ import torch
 from orion_kmer_tpu import codec
 from orion_kmer_tpu import engine as jax_engine
 from orion_kmer_tpu.cli import main as jax_main
-from orion_kmer_tpu_torch import engine
+from orion_kmer_tpu_torch import engine, table
 from orion_kmer_tpu_torch.cli import main as port_main
 from orion_kmer_tpu_torch.keys import keys_from_u64, table_from_jax, u64_from_keys
 from orion_kmer_tpu_torch.ops import count as port_count
@@ -174,7 +174,7 @@ def test_count_deep_forest_and_spills(tmp_path, monkeypatch, flush_windows):
     monkeypatch.setattr(engine.DeviceCountTable, "FLUSH_WINDOWS", flush_windows)
     monkeypatch.setattr(engine.DeviceCountTable, "DEVICE_TABLE_MAX", 8192)
     calls = {"spill": 0, "merge": 0}
-    orig_spill, orig_merge = engine.DeviceCountTable._spill, engine.merge_runs
+    orig_spill, orig_merge = engine.DeviceCountTable._spill, table.merge_runs
 
     def spill(self):
         calls["spill"] += 1
@@ -185,7 +185,7 @@ def test_count_deep_forest_and_spills(tmp_path, monkeypatch, flush_windows):
         return orig_merge(x, y)
 
     monkeypatch.setattr(engine.DeviceCountTable, "_spill", spill)
-    monkeypatch.setattr(engine, "merge_runs", merge_runs)
+    monkeypatch.setattr(table, "merge_runs", merge_runs)
     b = tmp_path / "port.tsv"
     assert port_cpu(["count", "-k", 21, "-i", f, "-o", b]) == 0
     assert calls["spill"] >= 2

@@ -1,6 +1,6 @@
 """The tail of the port's `count`: the min-count filter, the histogram and
 the TSV render in one native pass (``native.render_counts``) spread over
--t threads, the table's fetch (``engine.fetch_table``) and the sharded
+-t threads, the table's fetch (``staging.fetch_table``) and the sharded
 and cross-process assembly by a merge of the shards' sorted runs.
 
 Each case holds the fused pass against the path it replaced (the numpy
@@ -23,7 +23,7 @@ import torch
 
 from orion_kmer_tpu.cli import main as jax_main
 from orion_kmer_tpu.commands import count as jax_count
-from orion_kmer_tpu_torch import engine
+from orion_kmer_tpu_torch import engine, staging
 from orion_kmer_tpu_torch.cli import main as port_main
 from orion_kmer_tpu_torch.commands import count as port_count
 from orion_kmer_tpu_torch.host import CountAccumulator
@@ -323,18 +323,18 @@ def test_fetch_table_on_cpu_tensors():
     vals[-1] = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
     keys = keys_from_u64(vals)
     counts = torch.from_numpy(rng.integers(1, 100, size=5000).astype(np.int64))
-    got_v, got_c = engine.fetch_table(keys, counts)
+    got_v, got_c = staging.fetch_table(keys, counts)
     assert got_v.dtype == np.uint64 and got_c.dtype == np.int64
     assert np.array_equal(got_v, u64_from_keys(keys)) and np.array_equal(got_v, vals)
     assert np.array_equal(got_c, counts.cpu().numpy())
-    empty = engine.fetch_table(keys[:0], counts[:0])
+    empty = staging.fetch_table(keys[:0], counts[:0])
     assert empty[0].shape == empty[1].shape == (0,)
 
 
 def test_fetch_table_rejects_other_devices():
     x = torch.empty(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
-        engine.fetch_table(x, x)
+        staging.fetch_table(x, x)
 
 
 def _disjoint_parts(seed, n_parts, n):

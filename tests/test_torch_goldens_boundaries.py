@@ -29,8 +29,9 @@ import numpy as np
 import pytest
 
 from orion_kmer_tpu import codec
-from orion_kmer_tpu_torch.engine import ClassifyJoiner, DeviceCountTable
+from orion_kmer_tpu_torch.engine import ClassifyJoiner
 from orion_kmer_tpu_torch.parallel.streaming import ShardedCountTable
+from orion_kmer_tpu_torch.table import DeviceCountTable
 
 from . import util
 from .test_boundaries import (  # noqa: F401  (a re-exported case, then helpers)

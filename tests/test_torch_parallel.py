@@ -217,7 +217,7 @@ def _reads_fasta(path, seed=44, n_records=30):
 ])
 def test_make_count_table_modes_on_the_cpu(monkeypatch, mode, kind, n_shards):
     monkeypatch.setenv("ORION_KMER_SHARDS", mode)
-    table = engine._make_count_table(21, "cpu")
+    table = engine.make_count_table(21, "cpu")
     assert type(table) is kind
     if n_shards:
         assert table.mesh == [torch.device("cpu")] * n_shards
@@ -238,7 +238,7 @@ def test_make_count_table_modes_on_cards(monkeypatch, mode, cards, mesh):
     tables are built: nothing touches a card."""
     monkeypatch.setenv("ORION_KMER_SHARDS", mode)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    table = engine._make_count_table(31, "cuda")
+    table = engine.make_count_table(31, "cuda")
     if mesh is None:
         assert type(table) is engine.DeviceCountTable and table.device == torch.device("cuda")
     else:

@@ -20,7 +20,7 @@ from orion_kmer_tpu.parallel.streaming import _pack_blocks as jax_pack_blocks
 from orion_kmer_tpu_torch import engine, server as srv
 from orion_kmer_tpu_torch.ingest import native as port_native
 from orion_kmer_tpu_torch.keys import table_from_jax
-from orion_kmer_tpu_torch.parallel import ShardedCountTable, make_mesh, streaming
+from orion_kmer_tpu_torch.parallel import ShardedCountTable, make_mesh, sharded
 from orion_kmer_tpu_torch.version import __version__
 
 SHARDS = [1, 2, 3, 4, 8]
@@ -314,7 +314,7 @@ def test_pack_blocks_matches_jax_and_row_packing(monkeypatch, native_on):
     block = -(-stride // 32) * 32
     codes = rng.integers(0, 6, size=(S, stride)).astype(np.uint8)
     invalid = rng.random((S, stride)) < 0.2
-    lanes, inv_words = streaming._pack_blocks(codes, invalid, block)
+    lanes, inv_words = sharded._pack_blocks(codes, invalid, block)
     jl, ji = jax_pack_blocks(codes, invalid, block)
     np.testing.assert_array_equal(lanes, jl)
     np.testing.assert_array_equal(inv_words, ji)

@@ -1,5 +1,5 @@
 """The union of a ``KmerDb``'s sets: the K2 merge forest
-(``setops.union_runs``, ``engine.union_of_sets``) that a CUDA device runs,
+(``setops.union_runs``, ``setops.union_of_sets``) that a CUDA device runs,
 against the numpy stable sort (``db.sorted_unique``) that ``None`` and the
 CPU keep.
 
@@ -18,7 +18,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from orion_kmer_tpu_torch import cli, engine
+from orion_kmer_tpu_torch import cli
 from orion_kmer_tpu_torch.db import KmerDb, sorted_unique
 from orion_kmer_tpu_torch.ops import merge, setops
 from orion_kmer_tpu_torch.utils import spans
@@ -87,10 +87,10 @@ def _expected(sets):
 def test_the_forest_on_cpu_tensors_is_the_numpy_union(case):
     sets = _sets(case, np.random.default_rng(CASES.index(case)))
     exp = _expected(sets)
-    vals, n = engine.union_of_sets(sets, "cpu")
+    vals, n = setops.union_of_sets(sets, "cpu")
     assert vals.dtype == np.uint64 and np.array_equal(vals, exp)
     assert n == exp.shape[0]
-    assert engine.union_of_sets(sets, "cpu", fetch=False) == (None, exp.shape[0])
+    assert setops.union_of_sets(sets, "cpu", fetch=False) == (None, exp.shape[0])
 
 
 def test_each_merge_writes_an_aligned_slice_of_the_other_buffer(monkeypatch):
@@ -105,7 +105,7 @@ def test_each_merge_writes_an_aligned_slice_of_the_other_buffer(monkeypatch):
 
     monkeypatch.setattr(setops, "merge", recorded)
     sets = _sets("50 runs", np.random.default_rng(3))
-    assert np.array_equal(engine.union_of_sets(sets, "cpu")[0], _expected(sets))
+    assert np.array_equal(setops.union_of_sets(sets, "cpu")[0], _expected(sets))
     assert len(seen) == 49
     assert all(caller == "union" and odd == 0 and dst not in srcs for caller, odd, dst, srcs in seen)
 
@@ -130,13 +130,13 @@ def forest_for_cuda(monkeypatch):
     """``KmerDb`` sees a CUDA device, and ``union_of_sets`` runs on the
     CPU; the calls it gets are listed."""
     calls = []
-    real = engine.union_of_sets
+    real = setops.union_of_sets
 
     def on_cpu(sets, device, fetch=True):
         calls.append((str(device), fetch))
         return real(sets, "cpu", fetch)
 
-    monkeypatch.setattr(engine, "union_of_sets", on_cpu)
+    monkeypatch.setattr(setops, "union_of_sets", on_cpu)
     return calls
 
 

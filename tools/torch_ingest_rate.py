@@ -40,8 +40,8 @@ Then, on the card, the tail of `count -m 2 --histogram` after
   on the card and both planes into one pinned destination each;
   ``ring``, the same through a ring of four 16 MB pinned chunks with the
   host's copy of chunk i out of the ring beside the card's copy of the
-  next; ``fetch_table``, the checkout's ``engine.fetch_table`` where it
-  has one;
+  next; ``fetch_table``, the checkout's ``staging.fetch_table`` (or
+  ``engine.fetch_table``, before ``staging.py``) where it has one;
 - the rest of the tail as the checkout's `count` runs it: a checkout
   with ``native.render_counts`` writes the TSV and the histogram in one
   pass (``write_s``), timed at -t 1, 4 and 8 with the pass alone
@@ -137,8 +137,12 @@ def tail_split(np, torch, engine, native, fq, work) -> dict:
     ways = {"pageable": lambda: fetch_pageable(torch, np, keys, cnt),
             "pinned": lambda: fetch_pinned(torch, np, keys, cnt),
             "ring": lambda: fetch_ring(torch, np, native, keys, cnt)}
-    if hasattr(engine, "fetch_table"):
-        ways["fetch_table"] = lambda: engine.fetch_table(keys, cnt)
+    try:
+        from orion_kmer_tpu_torch.staging import fetch_table
+    except ImportError:  # a checkout from before staging.py
+        fetch_table = getattr(engine, "fetch_table", None)
+    if fetch_table is not None:
+        ways["fetch_table"] = lambda: fetch_table(keys, cnt)
     tail = {"rows": int(vals.shape[0]), "host_cache_emptied": empty_host_cache is not None,
             "fetch_s": {name: [] for name in ways}}
     for _ in range(3):

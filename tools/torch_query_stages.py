@@ -46,7 +46,7 @@ def main() -> int:
     import torch
 
     import chip_smoke
-    from orion_kmer_tpu_torch import codec, engine
+    from orion_kmer_tpu_torch import codec, engine, staging
     from orion_kmer_tpu_torch.ops import setops
     from orion_kmer_tpu_torch.ops.extract import extract_keys
     from orion_kmer_tpu_torch.ops.merge import merge
@@ -72,7 +72,8 @@ def main() -> int:
     rows = np.full((m, row), codec.INVALID_CODE, np.uint8)
     rows[:, :READ_LEN] = reads
     piece = rows.ravel()[:BATCH]
-    lanes, inv, size, n, rec_starts = engine._staged_plain(piece, np.arange(m, dtype=np.int64) * row, dev)
+    ring = staging.PinnedRing(dev)
+    lanes, inv, size, n, rec_starts = staging.stage_query(ring, piece, np.arange(m, dtype=np.int64) * row)
     db_keys = engine._db_on_device(db_vals, dev)
 
     keys, n_valid = extract_keys(lanes, inv, K, n)

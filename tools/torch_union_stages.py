@@ -13,10 +13,10 @@ synchronisation, the median of ``--reps``:
 - on the card, ``total_unique_kmers(device)`` and
   ``get_all_kmers_unified(device)`` whole, with their peak device memory;
 - their steps: the upload of the sets into one buffer (pageable, as
-  ``engine._sets_on_device`` makes it, and through one pinned staging
+  ``setops._sets_on_device`` makes it, and through one pinned staging
   buffer, its allocation counted and not), the sign flip, the K2 forest
   (``setops.union_runs``), the heads' count, K3's compaction, and the
-  fetch (into pinned memory, as ``engine.union_of_sets`` does it, and
+  fetch (into pinned memory, as ``setops.union_of_sets`` does it, and
   pageable).
 
 Every card result is checked against numpy's.  Prints one JSON line with
@@ -68,10 +68,11 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from orion_kmer_tpu_torch import engine
     from orion_kmer_tpu_torch.db import KmerDb
+    from orion_kmer_tpu_torch.keys import flip
     from orion_kmer_tpu_torch.ops import merge, setops
     from orion_kmer_tpu_torch.ops.compact import compact
+    from orion_kmer_tpu_torch.staging import to_host
 
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
@@ -121,7 +122,7 @@ def main() -> int:
     out["union_launches_a_union"] = (merge.by_caller.get("union", 0) - before) / (2 * args.reps)
 
     # the steps one by one
-    out["upload_pageable_s"], buf = timed(lambda: engine._sets_on_device(sets, dev))
+    out["upload_pageable_s"], buf = timed(lambda: setops._sets_on_device(sets, dev))
 
     def staged():
         host = torch.empty(n + len(sets), dtype=torch.int64, pin_memory=on_card)
@@ -131,27 +132,27 @@ def main() -> int:
     def via_staging(host):
         d = torch.empty_like(host, device=dev)
         d.copy_(host, non_blocking=True)
-        d[:n].bitwise_xor_(engine._SIGN_BIT)
+        flip(d[:n], out=d[:n])
         return d
 
     out["upload_pinned_with_alloc_s"], _ = timed(lambda: via_staging(staged()))
     host = staged()
     out["upload_pinned_reused_s"], _ = timed(lambda: via_staging(host))
     del host, _
-    out["flip_s"], _ = timed(lambda: buf[:n].bitwise_xor_(engine._SIGN_BIT), reps=2 * args.reps)
+    out["flip_s"], _ = timed(lambda: flip(buf[:n], out=buf[:n]), reps=2 * args.reps)
     lengths = [s.shape[0] for s in sets]
     out["forest_s"], (keys, heads) = timed(lambda b: setops.union_runs(b, lengths), prepare=buf.clone)
     del buf
     out["heads_count_s"], m = timed(lambda: int(heads.sum()))
     out["compact_s"], ((ukeys,), n_u) = timed(lambda: compact([keys], heads))
     assert int(n_u) == m == exp.shape[0]
-    ukeys = ukeys[:m].bitwise_xor_(engine._SIGN_BIT)
+    ukeys = flip(ukeys[:m], out=ukeys[:m])
     if on_card:
-        out["fetch_pinned_s"], fetched = timed(lambda: engine._pinned_copy(ukeys))
+        out["fetch_pinned_s"], (fetched,) = timed(lambda: to_host(ukeys))
         out["fetch_pageable_s"], _ = timed(lambda: ukeys.cpu())
     else:
-        fetched = ukeys
-    assert np.array_equal(fetched.numpy().view(np.uint64), exp), "the steps' union differs from numpy's"
+        fetched = ukeys.numpy()
+    assert np.array_equal(fetched.view(np.uint64), exp), "the steps' union differs from numpy's"
     print(json.dumps(out))
     return 0
 
