@@ -859,7 +859,7 @@ def phase_kernels(np, torch, codec, dev, rng):
     the bound from the bytes it must move, and the largest error."""
     from orion_kmer_tpu_torch.host import pack_for_transfer
     from orion_kmer_tpu_torch.keys import SENTINEL_KEY
-    from orion_kmer_tpu_torch.ops import compact, extract, merge, sketch, sort
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, radix, sketch, sort
     from orion_kmer_tpu_torch.ops import hash as hash_ops
     from orion_kmer_tpu_torch.parallel import sharded
 
@@ -900,7 +900,24 @@ def phase_kernels(np, torch, codec, dev, rng):
     t_h = median_ms(torch, lambda: sketch.keep_mask(keys, hash_ops.splitmix64(keys), 1000))
     log(f"sketch hash-and-keep chain, 2^24 keys, k = 31, scaled = 1000: {t_h:.4f} ms per batch, "
         f"bound {bound_ms(n * 9):.4f} ms")
-    del keys
+
+    # the batch radix sort on count's batch: the K1 keys of the 2^24 batch
+    # at k = 31, on their 62 bits as count sorts them (and on all 64),
+    # against its plain version, bit for bit, 20 times; its bound is 16 B a
+    # key a pass
+    want = radix.sort_keys_plain(keys)
+    err = max(max_abs_err(torch, radix.sort_keys(keys, 64), want), *(
+        max_abs_err(torch, radix.sort_keys(keys, 62), want) for _ in range(20)))
+    check(err == 0, "the batch radix sort agrees with torch.sort")
+    t_k = median_ms(torch, lambda: radix.sort_keys(keys, 62))
+    t_p = median_ms(torch, lambda: radix.sort_keys_plain(keys))
+    t_l = median_ms(torch, lambda: torch.sort(keys))
+    t_b = bound_ms(16 * radix.passes(62) * n)
+    log(f"batch radix sort, 2^24 K1 keys at k = 31 on 62 bits ({radix.passes(62)} passes): sort_keys "
+        f"{t_k:.4f} ms, plain torch.sort(keys).values {t_p:.4f} ms, library torch.sort {t_l:.4f} ms, "
+        f"bound {t_b:.4f} ms")
+    rec["radix"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, max_abs_err=err)
+    del keys, want
     torch.cuda.synchronize()
 
     # K2: every mode at edge lengths, 20 runs each byte for byte; then each
@@ -979,11 +996,11 @@ def phase_kernels(np, torch, codec, dev, rng):
         keys = torch.randint(-(1 << 62), 1 << 62, (m,), device=dev)
         keys[: m // 4] = keys[m // 4 : 2 * (m // 4)].clone()
         keys[0] = (1 << 63) - 1
-        err = max(err, max_abs_err(torch, sort.sort_pairs(keys), sort.sort_keys(keys)))
+        err = max(err, max_abs_err(torch, sort.sort_pairs(keys), torch.sort(keys).values))
         if m < 12289:
             continue
         t_k = median_ms(torch, lambda: sort.sort_pairs(keys))
-        t_p = median_ms(torch, lambda: sort.sort_keys(keys))
+        t_p = median_ms(torch, lambda: torch.sort(keys).values)
         t_l = median_ms(torch, lambda: torch.sort(keys))
         t_d = kernel_ms(torch, lambda: sort.sort_pairs(keys), "cluster_sort_kernel")
         t_b = bound_ms(m * 16)
@@ -1471,6 +1488,7 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
     log(f"launches in the main path: {launches}")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} launched in the main path")
+    check(launches["radix"] == launches["K1"], "the main path's batches sorted by the radix sort, one a batch")
     for caller in ("forest", "fold"):
         check(launches["K2 callers"].get(caller, 0) > 0, f"K2 launched by the {caller} in the main path")
 
@@ -1533,9 +1551,9 @@ def phase_realistic(np, torch, codec, work: Path, rng, gbp: float, dev):
 
 
 def kernel_modules():
-    from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+    from orion_kmer_tpu_torch.ops import compact, extract, merge, radix, sort
 
-    return {"K1": extract, "K2": merge, "K3": compact, "K4": sort}
+    return {"K1": extract, "K2": merge, "K3": compact, "K4": sort, "radix": radix}
 
 
 def add_modes(dicts) -> dict:
@@ -1548,7 +1566,8 @@ def add_modes(dicts) -> dict:
 
 
 def zero_counters():
-    """Every kernel's launch count, K2's by caller and K3's by mode, to 0."""
+    """Every kernel's launch count (the radix sort's too), K2's by caller
+    and K3's by mode, to 0."""
     kernels = kernel_modules()
     for mod in kernels.values():
         mod.launches = 0
@@ -1558,8 +1577,8 @@ def zero_counters():
 
 
 def read_counters():
-    """Launches of K1-K4 since zero_counters, K2's by caller (and by
-    caller and length) and K3's by mode."""
+    """Launches of K1-K4 and the radix sort since zero_counters, K2's by
+    caller (and by caller and length) and K3's by mode."""
     kernels = kernel_modules()
     out = {name: mod.launches for name, mod in kernels.items()}
     out["K2 callers"] = dict(kernels["K2"].by_caller)
@@ -2106,7 +2125,7 @@ import json, sys
 import numpy as np
 import torch, torch.distributed as dist
 from orion_kmer_tpu_torch import codec
-from orion_kmer_tpu_torch.ops import compact, extract
+from orion_kmer_tpu_torch.ops import compact, extract, radix
 from orion_kmer_tpu_torch.parallel.distributed import multihost_sharded_count
 
 dist.init_process_group("nccl", init_method="tcp://localhost:" + sys.argv[1], world_size=1, rank=0)
@@ -2120,7 +2139,7 @@ assert np.array_equal(vals, exp_v) and np.array_equal(counts, exp_c)
 torch.cuda.synchronize()
 dist.destroy_process_group()
 print(json.dumps({"unique": int(vals.shape[0]), "K1": extract.launches, "K3": compact.launches,
-                  "K3 modes": compact.by_mode, "stats": stats}))
+                  "K3 modes": compact.by_mode, "radix": radix.launches, "stats": stats}))
 """
 
 # two ranks of two shards each count the 9 Mbp FASTA at k = 21: a warm-up
@@ -2132,7 +2151,7 @@ import numpy as np
 import torch, torch.distributed as dist
 from orion_kmer_tpu_torch import codec
 from orion_kmer_tpu_torch.ingest.fastx import parse_fastx_file
-from orion_kmer_tpu_torch.ops import compact, extract
+from orion_kmer_tpu_torch.ops import compact, extract, radix
 from orion_kmer_tpu_torch.parallel.distributed import maybe_initialize_distributed, multihost_sharded_count, rank_devices
 from orion_kmer_tpu_torch.parallel.mesh import make_mesh
 
@@ -2145,7 +2164,7 @@ edge = codec.seq_to_codes(b"T" * 40)
 multihost_sharded_count(edge, edge > 3, 21, "cuda", devices=mesh)
 for card in set(mesh):
     torch.cuda.synchronize(card)
-extract.launches = compact.launches = 0
+extract.launches = compact.launches = radix.launches = 0
 compact.by_mode.clear()
 dist.barrier()
 t0 = time.perf_counter()
@@ -2156,7 +2175,8 @@ if dist.get_rank() == 0:
     np.save(out + ".vals.npy", vals)
     np.save(out + ".counts.npy", counts)
 print(json.dumps({"rank": dist.get_rank(), "devices": [str(d) for d in mesh], "wall_s": round(wall, 3),
-                  "K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode, "stats": stats}))
+                  "K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode,
+                  "radix": radix.launches, "stats": stats}))
 dist.destroy_process_group()
 """
 
@@ -2192,7 +2212,8 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
             f"launches {res['launches']}")
         runs[f"two ranks x {shards} shard(s)"] = {
             "K1": sum(r["K1"] for r in res["launches"]), "K2": 0, "K3": sum(r["K3"] for r in res["launches"]),
-            "K3 modes": add_modes(r["K3 modes"] for r in res["launches"])}
+            "K3 modes": add_modes(r["K3 modes"] for r in res["launches"]),
+            "radix": sum(r["radix"] for r in res["launches"])}
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2207,7 +2228,8 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
           "the lone nccl rank took every card and launched K1 and K3 on each")
     log(f"one rank over nccl, one shard on each of {n_cards} card(s), 2^20 positions at k = 31: == oracle, "
         f"{got['unique']} unique, {time.monotonic() - t0:.1f} s with process start; {got}")
-    runs["one nccl rank"] = {"K1": got["K1"], "K2": 0, "K3": got["K3"], "K3 modes": got["K3 modes"]}
+    runs["one nccl rank"] = {"K1": got["K1"], "K2": 0, "K3": got["K3"], "K3 modes": got["K3 modes"],
+                             "radix": got["radix"]}
 
     t0 = time.monotonic()
     out = work / "big_ranks"
@@ -2225,7 +2247,8 @@ def phase_two_processes(np, torch, work: Path, big_fasta, oracle_tsv21):
             f"stats {st}")
     log(f"two ranks x 2 shards on the 9 Mbp FASTA: {time.monotonic() - t0:.1f} s with process start")
     runs["two ranks x 2 shards, 9 Mbp"] = {"K1": sum(r["K1"] for r in ranks), "K2": 0, "K3": sum(r["K3"] for r in ranks),
-                                           "K3 modes": add_modes(r["K3 modes"] for r in ranks)}
+                                           "K3 modes": add_modes(r["K3 modes"] for r in ranks),
+                                           "radix": sum(r["radix"] for r in ranks)}
     return runs
 
 
@@ -2310,12 +2333,13 @@ def main() -> int:
         log(f"{card}; ran phases 1-3, 5, 10 and 11 (--sharded-only): no result line")
         return 0
 
-    # launches: K1-K3 summed over the in-process runs of phases 5 to 10 and
-    # the ranks of phase 11; K4, which no command reaches, from its entry's run
+    # launches: K1-K3 and the radix sort summed over the in-process runs of
+    # phases 5 to 10 and the ranks of phase 11; K4, which no command
+    # reaches, from its entry's run
     runs["count"] = launches
     for name, r in runs.items():
         log(f"launches of {name}: {r}")
-    total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3")}
+    total = {key: sum(r[key] for name, r in runs.items() if name != "sort_pairs") for key in ("K1", "K2", "K3", "radix")}
     total["K4"] = runs["sort_pairs"]["K4"]
     log(f"K2 launches by caller, summed as K2 is: {add_modes(r.get('K2 callers', {}) for name, r in runs.items())}")
     log(f"K2 launches by caller and length: {add_modes(r.get('K2 sizes', {}) for name, r in runs.items())}")
@@ -2326,6 +2350,7 @@ def main() -> int:
         ("K2 merge", f"{pkg}/merge.cu", "orion_kmer_tpu/ops/sort_pallas.py:222"),
         ("K3 compact", f"{pkg}/compact.cu", "orion_kmer_tpu/ops/sort_pallas.py:463"),
         ("K4 sort", f"{pkg}/sort.cu", "orion_kmer_tpu/ops/sort_pallas.py:153"),
+        ("radix sort", f"{pkg}/radix.cu", "no Pallas kernel: torch.sort(keys).values (orion_kmer_tpu/ops/count.py: lax.sort)"),
     ]
     out = []
     for name, source, replaces in kernels:

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "okt_compact_route": (ctypes.c_int, [_P, _I, _I, _P, _P, _P]),
     "okt_sort_max_n": (_I, []),
     "okt_sort": (ctypes.c_int, [_P, _I, _P, _P]),
+    "okt_radix_scratch": (_I, [_I, _I]),
+    "okt_radix_sort": (ctypes.c_int, [_P, _P, _P, _I, _I, _P, _P]),
     "okt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

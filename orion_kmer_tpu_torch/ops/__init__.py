@@ -1,5 +1,6 @@
 """Device ops of the port: extraction (K1), run merge (K2), compaction
-(K3), block sort (K4), and what is built from them: the count pipeline
+(K3), block sort (K4), the radix sort of whole batches (``radix.py``),
+and what is built from them: the count pipeline
 (``count.py``) and the set joins (``setops.py``).
 
 Each kernel module holds the wrapper, its plain PyTorch version and a

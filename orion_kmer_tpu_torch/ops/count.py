@@ -2,7 +2,7 @@
 encode.
 
 The torch counterparts of ``orion_kmer_tpu/ops/count.py``:
-``sort_canonical_packed`` (extraction through K1, then ``sort.sort_keys``),
+``sort_canonical_packed`` (extraction through K1, then ``radix.sort_keys``),
 ``rle_sorted`` (``_rle_sorted`` / ``rle_compact``, head compaction
 through K3) and ``combine_sorted_unique`` (K2's fold mode, which merges
 and sums the counts of shared keys, then K3).  Counts are int64
@@ -21,7 +21,7 @@ import torch
 from .compact import compact, compact_positions
 from .extract import extract_keys
 from .merge import merge, merge_combine
-from .sort import sort_keys
+from .radix import sort_keys
 
 
 def _exact(t, m: int):
@@ -32,9 +32,10 @@ def _exact(t, m: int):
 
 def sort_canonical_packed(lanes, invalid_words, k: int, n_positions: int):
     """Extract + sort the canonical keys of a packed batch.  Returns a raw
-    run (sorted keys of length 16 * len(lanes), n_valid)."""
+    run (sorted keys of length 16 * len(lanes), n_valid).  K1's keys
+    differ only in their low 2k bits."""
     keys, n_valid = extract_keys(lanes, invalid_words, k, n_positions)
-    return sort_keys(keys), n_valid
+    return sort_keys(keys, 2 * k), n_valid
 
 
 def merge_runs(a, b):

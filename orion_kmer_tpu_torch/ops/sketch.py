@@ -4,7 +4,7 @@ estimators.
 The torch counterpart of ``orion_kmer_tpu/ops/sketch.py``.  A k-mer is
 kept iff splitmix64(canonical k-mer) < 2^64 / scaled.  A batch goes
 through K1 (``extract_keys``), the hash and keep chain (torch ops), K3
-(``compact``) of the survivors, ``sort.sort_keys`` of the n_kept survivors
+(``compact``) of the survivors, ``radix.sort_keys`` of the n_kept survivors
 only, and ``count.rle_sorted`` (K3 again) for the abundances.
 
 The JAX sparse capacity, its ``overflow`` flag and the dense retry exist
@@ -32,7 +32,7 @@ from .compact import compact
 from .count import rle_sorted
 from .extract import extract_keys
 from .hash import SIGN, splitmix64, splitmix64_np
-from .sort import sort_keys
+from .radix import sort_keys
 
 
 def scaled_threshold(scaled: int) -> int:
@@ -64,7 +64,7 @@ def sketch_packed(lanes, invalid_words, k: int, n_positions: int, scaled: int):
     m = int(n_kept)
     if m == 0:
         return kept.new_empty(0), kept.new_empty(0)
-    return rle_sorted(sort_keys(kept[:m]), n_kept)
+    return rle_sorted(sort_keys(kept[:m]), n_kept)  # 64-bit hashes: every bit
 
 
 def sketch_compare(a: np.ndarray, b: np.ndarray) -> dict:

@@ -40,7 +40,7 @@ from ..host import CountAccumulator, wire_size
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
 from ..ops.extract import extract_keys
-from ..ops.sort import sort_keys
+from ..ops.radix import sort_keys
 from ..staging import fetch_table, to_device, to_host
 from .mesh import make_mesh
 from .sharded import _pack_blocks, fetch_counts, shard_blocks
@@ -221,7 +221,7 @@ def multihost_sharded_count(codes, invalid, k: int, device="cuda", stats: dict |
         segments += [pieces[i * len(mesh) + o].to(dev, non_blocking=True) for i in range(len(remote_sources))]
         received = torch.cat(segments)
         ukeys, ucnt = rle_sorted(
-            sort_keys(received), torch.full((), received.shape[0], dtype=torch.int64, device=dev)
+            sort_keys(received, 2 * k), torch.full((), received.shape[0], dtype=torch.int64, device=dev)
         )
         results.append((_to_comm(ukeys, comm), _to_comm(ucnt, comm)))
     all_keys = _all_gather_ragged(torch.cat([u for u, _ in results]), comm)
@@ -314,7 +314,7 @@ import numpy as np
 import torch.distributed as dist
 
 from orion_kmer_tpu_torch import codec
-from orion_kmer_tpu_torch.ops import compact, extract
+from orion_kmer_tpu_torch.ops import compact, extract, radix
 from orion_kmer_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed,
     multihost_sharded_count,
@@ -341,7 +341,8 @@ for name, k, c in (("k=9", 9, codes), ("k=21", 21, codes), ("k=32", 32, codes), 
     np.testing.assert_array_equal(counts, exp_c)
     counts_done.append({"count": name, "unique": int(vals.shape[0]), "stats": stats})
 print(json.dumps({"rank": dist.get_rank(), "devices": [str(d) for d in mesh], "counts": counts_done,
-                  "launches": {"K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode}}))
+                  "launches": {"K1": extract.launches, "K3": compact.launches, "K3 modes": compact.by_mode,
+                               "radix": radix.launches}}))
 dist.destroy_process_group()
 '''
 

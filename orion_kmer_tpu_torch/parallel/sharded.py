@@ -32,7 +32,7 @@ from ..ingest import native
 from ..ops.compact import partition
 from ..ops.count import rle_sorted
 from ..ops.extract import extract_keys
-from ..ops.sort import sort_keys
+from ..ops.radix import sort_keys
 from ..staging import fetch_table, to_device
 
 
@@ -156,7 +156,7 @@ def route_and_sort(codes: np.ndarray, invalid: np.ndarray, k: int, mesh: list[to
     table = fetch_counts(counts, mesh)
     received, moved = exchange(bufs, table, mesh)
     runs = [
-        (sort_keys(r), torch.full((), r.shape[0], dtype=torch.int64, device=r.device))
+        (sort_keys(r, 2 * k), torch.full((), r.shape[0], dtype=torch.int64, device=r.device))
         for r in received
     ]
     return runs, table, moved

@@ -8,7 +8,7 @@ shards with the same stages:
   1. per batch, every shard extracts the canonical keys of its halo-split
      block (K1), splits them by hash-range owner (one K3 pass in route
      mode for all S destinations) and ships each destination its exact
-     segment; every shard sorts what it received (``ops.sort.sort_keys``);
+     segment; every shard sorts what it received (``ops.radix.sort_keys``);
   2. each shard accumulates its sorted runs in its own merge forest (K2):
      a shard merges only its own hash range, so nothing crosses shards
      after the routing;

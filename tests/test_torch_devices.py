@@ -17,7 +17,7 @@ import torch
 
 import orion_kmer_tpu_torch
 from orion_kmer_tpu_torch import _kernels
-from orion_kmer_tpu_torch.ops import compact, extract, merge, sort
+from orion_kmer_tpu_torch.ops import compact, extract, merge, radix, sort
 
 CSRC = Path(orion_kmer_tpu_torch.__file__).resolve().parent / "csrc"
 
@@ -78,6 +78,8 @@ LAUNCHES = {
                              {"okt_compact"}),
     "K3 compact route": (compact, lambda: compact.partition(_meta(9), 5), {"okt_compact_route"}),
     "K4 sort": (sort, lambda: sort.sort_pairs(_meta(100)), {"okt_sort"}),
+    "radix sort": (radix, lambda: radix.sort_keys(_meta(100), 62), {"okt_radix_sort"}),
+    "radix sort, 64 bits": (radix, lambda: radix.sort_keys(_meta(100), 64), {"okt_radix_sort"}),
 }
 
 
@@ -123,7 +125,7 @@ def test_no_wrapper_calls_a_launching_entry_outside_the_guard():
     """Source check: in ops/, every call of a C entry that launches or
     reads the device sits in a ``with _kernels.on_device(...)`` block."""
     ops = Path(orion_kmer_tpu_torch.__file__).resolve().parent / "ops"
-    device_bound = re.compile(r"\.okt_(extract_blocks|extract|merge|compact|compact_route|sort)\(")
+    device_bound = re.compile(r"\.okt_(extract_blocks|extract|merge|compact|compact_route|sort|radix_sort)\(")
     for path in sorted(ops.glob("*.py")):
         guard_indent = None
         for line in path.read_text().splitlines():

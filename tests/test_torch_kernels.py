@@ -16,7 +16,7 @@ import torch
 from orion_kmer_tpu_torch import _kernels, codec
 from orion_kmer_tpu_torch.host import pack_for_transfer
 from orion_kmer_tpu_torch.keys import SENTINEL_KEY, keys_from_u64
-from orion_kmer_tpu_torch.ops import compact, extract, merge, setops, sort
+from orion_kmer_tpu_torch.ops import compact, extract, merge, radix, setops, sort
 
 
 @pytest.fixture
@@ -36,6 +36,7 @@ def test_cpu_path_never_loads_the_kernels(monkeypatch):
     merge.merge_combine(x, x, x, x)
     compact.compact([x], x > 3)
     sort.sort_pairs(x)
+    radix.sort_keys(x, 8)
     lanes, inv = _wire(np.random.default_rng(0), 100, 128)
     extract.extract_keys(lanes, inv, 5, 100)
 
@@ -51,6 +52,8 @@ def test_non_cpu_non_cuda_tensors_raise():
         compact.compact([x], torch.empty(8, dtype=torch.bool, device=device))
     with pytest.raises(ValueError):
         sort.sort_pairs(x)
+    with pytest.raises(ValueError):
+        radix.sort_keys(x, 62)
     with pytest.raises(ValueError):
         extract.extract_keys(
             torch.empty(8, dtype=torch.int32, device=device),
@@ -282,6 +285,77 @@ def test_sort_kernel_matches_plain(cuda, n):
     got = sort.sort_pairs(keys.to(cuda))
     assert sort.launches == before + 1
     assert torch.equal(got.cpu(), sort.sort_keys(keys))
+
+
+RADIX_SIZES = [0, 1, 2, 31, (1 << 14) + 1, 12289, (1 << 20) + 3, 1 << 24]
+
+
+def _radix_checked(keys, key_bits):
+    """The radix sort of ``keys`` (on a card), held bit for bit against
+    torch.sort; the input is left as it was, and the sort counts one
+    launch from 2 keys up."""
+    want = torch.sort(keys).values
+    before, kept = radix.launches, keys.clone()
+    got = radix.sort_keys(keys, key_bits)
+    torch.cuda.synchronize()
+    assert radix.launches == before + (keys.shape[0] > 1)
+    assert torch.equal(got, want)
+    assert torch.equal(keys, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RADIX_SIZES)
+def test_radix_sort_matches_torch_sort(cuda, n):
+    """Full-range int64, negatives included (the sketch's hashes), at 64
+    bits; and flipped values below 2^62 - 1 with sentinels (k = 31) at 62:
+    one partial tile, ragged last tiles, count's batch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    full = torch.randint(-(2**63), 2**63 - 1, (n,), device=cuda, generator=gen)
+    full[: n // 4] = full[n // 4 : 2 * (n // 4)].clone()  # duplicates
+    _radix_checked(full, 64)
+    k31 = torch.randint(0, 2**62 - 1, (n,), device=cuda, generator=gen) ^ -(1 << 63)
+    k31[: n // 5] = SENTINEL_KEY
+    _radix_checked(k31, 62)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 11, 16, 21, 31, 32])
+def test_radix_sort_of_k1_keys_at_2k_bits(cuda, k):
+    """K1's own keys of reads with N runs (sentinels), sorted on their
+    low 2k bits as count sorts them."""
+    rng = np.random.default_rng(k)
+    n = (1 << 20) - 37
+    lanes, inv = _wire(rng, n, 1 << 20)
+    keys, _ = extract.extract_keys(lanes.to(cuda), inv.to(cuda), k, n)
+    assert bool((keys == SENTINEL_KEY).any())
+    _radix_checked(keys, 2 * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sentinels", "equal", "descending"])
+@pytest.mark.parametrize("key_bits", [62, 64])
+@pytest.mark.parametrize("n", [5000, (1 << 20) + 3])
+def test_radix_sort_of_uniform_and_reversed_input(cuda, kind, key_bits, n):
+    """Tiles of one digit (all sentinels, all equal) take the agent's
+    short circuit; a descending input moves every key."""
+    if kind == "sentinels":
+        keys = torch.full((n,), SENTINEL_KEY, dtype=torch.int64, device=cuda)
+    elif kind == "equal":
+        keys = torch.full((n,), -(1 << 63) + 12345, dtype=torch.int64, device=cuda)
+    else:
+        keys = (torch.arange(n, 0, -1, device=cuda) * 7919) ^ -(1 << 63)
+    _radix_checked(keys, key_bits)
+
+
+@pytest.mark.cuda
+def test_sort_pairs_above_its_cluster_takes_the_radix_sort(cuda):
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (1 << 14) + 1, dtype=np.int64)).to(cuda)
+    k4, before = sort.launches, radix.launches
+    got = sort.sort_pairs(keys)
+    assert (sort.launches, radix.launches) == (k4, before + 1)
+    assert torch.equal(got, torch.sort(keys).values)
 
 
 @pytest.mark.cuda

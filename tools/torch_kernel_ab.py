@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K2, K3 and K4 of two checkouts of the port, timed the same way on one card.
+"""K1, K2, K3, K4 and the batch sort of two checkouts of the port, timed the same way on one card.
 
     python3 tools/torch_kernel_ab.py [--root DIR]
 
@@ -27,7 +27,14 @@ flush (``chip_smoke.K2_FOREST``, 2^22 to 2^27 keys a side), the fold and a shard
 then the sums and keep flags: K2's fold mode, or, before it, the merge and
 the torch chain ``combine_sorted_unique`` ran), the payload merge at the
 fold's size, the whole ``combine_sorted_unique``, and the join's payload
-merge.  To compare
+merge.  The batch sort at count's 2^24 keys, of those k = 31 K1 keys on
+62 bits and of full-range keys on 64: ``ops.radix.sort_keys`` where the
+checkout has it, else its ``sort_keys``, held against
+``torch.sort(x).values`` (the parent's call, ``library_ms``) and against
+``cub::DeviceRadixSort::SortKeys`` over the same bits (``CUB_SORT``, which
+this tool builds: ``cub_device_sort_ms``, with a copy of the input,
+``clone_ms``, that keeps it), and beside its bound (16 B a key
+a pass; and once); ``pass_ms`` is one onesweep launch by torch.profiler.  To compare
 a commit with its parent, unpack the parent with ``git archive`` into a
 directory that .gitignore lists and run parent, change, change, parent in
 one call on the card.  Prints one JSON line.
@@ -38,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -88,6 +96,106 @@ def k2_rows(chip_smoke, torch, dev):
                 torch, lambda: count.combine_sorted_unique(a, pa, b, pb), calls=5)}
             chip_smoke.check(all(torch.equal(g, w) for g, w in zip(count.combine_sorted_unique(a, pa, b, pb), whole)),
                              "combine_sorted_unique == plain")
+    return out
+
+
+# cub::DeviceRadixSort::SortKeys, keys only over bits [0, end_bit): the
+# library's whole device sort, timed beside the batch sort as the simple
+# design's reference; built by this tool, not part of the package
+CUB_SORT = r"""
+#include <cstdint>
+#include <cub/device/device_radix_sort.cuh>
+
+extern "C" int64_t ab_cub_temp(int64_t n, int end_bit) {
+  size_t bytes = 0;
+  cub::DoubleBuffer<int64_t> d(nullptr, nullptr);
+  return cub::DeviceRadixSort::SortKeys(nullptr, bytes, d, (int)n, 0, end_bit) == cudaSuccess ? (int64_t)bytes : -1;
+}
+
+// a, b: the double buffer (the keys in a); *selector: which holds the result
+extern "C" int ab_cub_sort(void* temp, int64_t bytes, void* a, void* b, int64_t n, int end_bit, void* stream,
+                           int* selector) {
+  size_t t = (size_t)bytes;
+  cub::DoubleBuffer<int64_t> d((int64_t*)a, (int64_t*)b);
+  cudaError_t err = cub::DeviceRadixSort::SortKeys(temp, t, d, (int)n, 0, end_bit, (cudaStream_t)stream);
+  *selector = d.selector;
+  return (int)err;
+}
+"""
+
+
+def build_cub_sort(out_dir: Path):
+    """nvcc of CUB_SORT, started: (the library's path, the process)."""
+    import subprocess
+
+    from orion_kmer_tpu_torch import _kernels
+
+    cu, so = out_dir / "cub_sort.cu", out_dir / "cub_sort.so"
+    cu.write_text(CUB_SORT)
+    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cub_sorter(chip_smoke, torch, so: Path, proc):
+    """The built CUB_SORT as fn(keys, end_bit) -> sorted keys."""
+    import ctypes
+
+    _, err = proc.communicate()
+    chip_smoke.check(proc.returncode == 0, f"nvcc of the CUB reference:\n{err}")
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int64
+    lib.ab_cub_temp.restype, lib.ab_cub_temp.argtypes = I, [I, ctypes.c_int]
+    lib.ab_cub_sort.restype = ctypes.c_int
+    lib.ab_cub_sort.argtypes = [P, I, P, P, I, ctypes.c_int, P, ctypes.POINTER(ctypes.c_int)]
+
+    def sort(keys, end_bit):
+        n = keys.shape[0]
+        bytes_ = lib.ab_cub_temp(n, end_bit)
+        temp = torch.empty(max(bytes_, 1), dtype=torch.uint8, device=keys.device)
+        bufs = (keys.clone(), torch.empty_like(keys))  # the clone, as the port's sort keeps its input
+        selector = ctypes.c_int(0)
+        rc = lib.ab_cub_sort(temp.data_ptr(), bytes_, bufs[0].data_ptr(), bufs[1].data_ptr(), n, end_bit,
+                             torch.cuda.current_stream(keys.device).cuda_stream, ctypes.byref(selector))
+        chip_smoke.check(rc == 0, f"cub::DeviceRadixSort::SortKeys: CUDA error {rc}")
+        return bufs[selector.value]
+
+    return sort
+
+
+def sort_rows(chip_smoke, torch, dev, k31_keys, cub_sort):
+    """The batch sort at count's batch size: {shape: {...}}."""
+    from orion_kmer_tpu_torch.ops import sort
+
+    try:
+        from orion_kmer_tpu_torch.ops import radix
+    except ImportError:  # a checkout before the radix sort
+        radix = None
+    n = k31_keys.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    full = torch.randint(-(2**63), 2**63 - 1, (n,), device=dev, generator=gen)
+    out = {}
+    for what, keys, key_bits in (("k=31 K1 keys, 62 bits", k31_keys, 62), ("full range, 64 bits", full, 64)):
+        want = torch.sort(keys).values
+        lib_fn = lambda: cub_sort(keys, key_bits)  # noqa: E731
+        chip_smoke.check(torch.equal(lib_fn(), want), "cub::DeviceRadixSort::SortKeys == torch.sort")
+        row = {"library_ms": chip_smoke.median_ms(torch, lambda: torch.sort(keys).values),
+               "library_pass_ms": chip_smoke.kernel_ms(torch, lambda: torch.sort(keys), "RadixSortOnesweep"),
+               "cub_device_sort_ms": chip_smoke.median_ms(torch, lib_fn),
+               "cub_device_pass_ms": chip_smoke.kernel_ms(torch, lib_fn, "RadixSortOnesweep"),
+               "clone_ms": chip_smoke.median_ms(torch, keys.clone),  # in cub_device_sort_ms
+               "bound_ms_once": chip_smoke.bound_ms(16 * n)}
+        if radix is None:
+            chip_smoke.check(torch.equal(sort.sort_keys(keys), want), "sort_keys == torch.sort")
+            row["sort_keys_ms"] = chip_smoke.median_ms(torch, lambda: sort.sort_keys(keys))
+        else:
+            fn = lambda: radix.sort_keys(keys, key_bits)  # noqa: E731
+            chip_smoke.check(torch.equal(fn(), want), "radix sort == torch.sort")
+            passes = radix.passes(key_bits)
+            row.update(passes=passes, ms=chip_smoke.median_ms(torch, fn),
+                       pass_ms=chip_smoke.kernel_ms(torch, fn, "radix_onesweep"),
+                       bound_ms=chip_smoke.bound_ms(16 * passes * n))
+        out[f"batch sort 2^24, {what}"] = row
     return out
 
 
@@ -214,6 +322,8 @@ def main() -> int:
         raise SystemExit("torch_kernel_ab: no CUDA device")
     chip_smoke.check(Path(extract.__file__).is_relative_to(root), f"the package of {root} is timed")
     dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    cub_build = build_cub_sort(Path(tmp.name))  # nvcc runs while K1 and K4 are timed
     rng = np.random.default_rng(0)
     n = 1 << 24
     codes = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
@@ -235,11 +345,13 @@ def main() -> int:
         out[f"K4 {m}"] = {"ms": chip_smoke.median_ms(torch, fn),
                           "kernel_ms": chip_smoke.kernel_ms(torch, fn, "sort_kernel"),
                           "torch.sort ms": chip_smoke.median_ms(torch, lambda: torch.sort(keys))}
+    out.update(sort_rows(chip_smoke, torch, dev, got[0], cub_sorter(chip_smoke, torch, *cub_build)))
     del L, I, got, exp
     out.update(k2_rows(chip_smoke, torch, dev))
     torch.cuda.empty_cache()
     out.update(k3_rows(chip_smoke, torch, dev))
     print(json.dumps(out))
+    tmp.cleanup()
     return 0
 
 
