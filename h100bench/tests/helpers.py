@@ -1,79 +1,63 @@
-"""Tiny sizes of the benchmark's configurations, for runs on the CPU, and
-the cells put off (``h100bench/put_off.json``) added back for the tests."""
+"""What the tests find by name, as the runner does (``harness/manifest.py``):
+the cells, configurations and commands of ``BENCHMARK.json``, each
+configuration's tiny size for runs on the CPU
+(``tests/tiny/<config>.json``) and each command's planted faults
+(``tests/faults/<command>.py``)."""
 
 from __future__ import annotations
 
-import atexit
 import json
-import shutil
-import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PUT_OFF = ROOT / "h100bench" / "put_off.json"
-
-TINY = {
-    "ecoli-illumina-1gbp": {
-        "genome_bp": 20_000, "gbp": 0.0003, "block_reads": 700, "n_read_share": 0.05,
-        "references": {"strain_substitution_rate": 0.01, "unrelated_bp": 20_000},
-    },
-    "bacteria-50x5mbp": {"n_genomes": 4, "n_clades": 2, "genome_bp": 20_000},
-}
+FAULTS = ("unchanged", "half_batch", "altered")
 
 
-def benchmark() -> dict:
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+def benchmark(root: Path = ROOT) -> dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def with_put_off(data: dict) -> dict:
-    """``data`` (a ``BENCHMARK.json``) with the cells put off added back:
-    their workloads, their metrics, and their names in the ``workloads``
-    of the metrics they share."""
-    off = json.loads(PUT_OFF.read_text())
-    data = json.loads(json.dumps(data))
-    data["workloads"] += off["workloads"]
-    for kind in ("end_to_end", "per_layer"):
-        have = {m["name"]: m for m in data[kind]}
-        for m in off[kind]:
-            if m["name"] in have:
-                have[m["name"]]["workloads"] += m["workloads"]
-            else:
-                data[kind].append(m)
-    return data
+def cells(root: Path = ROOT) -> list[str]:
+    return [w["name"] for w in benchmark(root)["workloads"]]
 
 
-_put_off_root: Path | None = None
+def configs(root: Path = ROOT) -> list[str]:
+    return [c["name"] for c in benchmark(root)["configs"]]
 
 
-def root_for(workload: str) -> Path:
-    """The checkout whose ``BENCHMARK.json`` holds ``workload``: this one,
-    or for a cell put off a copy of its ``BENCHMARK.json`` with the cells
-    put off added back, beside a link to this ``h100bench/``."""
-    global _put_off_root
-    if any(w["name"] == workload for w in benchmark()["workloads"]):
-        return ROOT
-    if _put_off_root is None:
-        root = Path(tempfile.mkdtemp(prefix="h100bench-put-off-"))
-        atexit.register(shutil.rmtree, root, True)
-        (root / "h100bench").symlink_to(ROOT / "h100bench", target_is_directory=True)
-        (root / "BENCHMARK.json").write_text(json.dumps(with_put_off(benchmark())))
-        _put_off_root = root
-    return _put_off_root
+def commands(root: Path = ROOT) -> list[str]:
+    """The commands the cells' traffic runs, each once, in the cells' order."""
+    from h100bench.harness.manifest import Manifest
+
+    man = Manifest(root)
+    return list(dict.fromkeys(man.traffic(w["traffic"])["command"] for w in man.data["workloads"]))
+
+
+def tiny(manifest, config: str) -> dict:
+    """The keys of ``config`` that a run on the CPU overrides."""
+    return json.loads((manifest.bench / "tests" / "tiny" / f"{config}.json").read_text())
 
 
 def tiny_config(manifest, workload: str) -> dict:
-    return TINY[manifest.workload(workload)["config"]]
+    return tiny(manifest, manifest.workload(workload)["config"])
 
 
-def run_tiny(workload: str, seed: int = 2**31 + 7, root: Path | None = None, seconds: float = 0.3,
+def faults(manifest, command: str):
+    """The module of ``command``'s planted faults: one function of a
+    ``monkeypatch`` for each name in ``FAULTS``."""
+    from h100bench.harness.manifest import load_module
+
+    return load_module(manifest.bench / "tests" / "faults" / f"{command}.py", "faults")
+
+
+def run_tiny(workload: str, seed: int = 2**31 + 7, root: Path = ROOT, seconds: float = 0.3,
              trace: bool = False, override: dict | None = None, device: str = "cpu") -> dict:
     """One run of a cell at a tiny size, on the CPU (no look for a card)
     unless ``device`` is ``cuda``."""
     from h100bench.harness import runner
     from h100bench.harness.manifest import Manifest
 
-    root = root_for(workload) if root is None else root
     runner.prepare_environment(ROOT)
     cfg = {**tiny_config(Manifest(root), workload), **(override or {})}
     return runner.run(workload, seed, seconds, trace, time.monotonic(), root=root, device=device,

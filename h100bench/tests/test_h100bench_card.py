@@ -1,10 +1,11 @@
-"""Every cell at a tiny size on the card, through the port's CUDA path:
-run with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
-h100bench/tests`` on a machine with a card; skipped without one."""
+"""Every cell of ``BENCHMARK.json`` at its configuration's tiny size on
+the card, through the port's CUDA path: run with ``python -m pytest
+--noconftest -p no:cacheprovider -m cuda h100bench/tests`` on a machine
+with a card; skipped without one."""
 
 import pytest
 
-from h100bench.tests.helpers import run_tiny
+from h100bench.tests.helpers import cells, run_tiny
 
 
 @pytest.fixture
@@ -16,7 +17,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["count-k31", "build-k31", "count-k21", "query-c10"])
+@pytest.mark.parametrize("cell", cells())
 @pytest.mark.parametrize("trace", [False, True])
 def test_a_tiny_run_on_the_card_is_correct(card, cell, trace):
     r = run_tiny(cell, device="cuda", trace=trace)

@@ -1,5 +1,6 @@
-"""BENCHMARK.json against the rules on names, units and files, and a cell
-added by dropping in new files."""
+"""BENCHMARK.json against the rules on names, units and files; every
+configuration has its tiny size and every command its faults; a cell and a
+configuration added by dropping in new files."""
 
 import hashlib
 import json
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 from h100bench.harness import manifest
-from h100bench.tests.helpers import ROOT, root_for, run_tiny, with_put_off
+from h100bench.tests.helpers import FAULTS, ROOT, commands, configs, faults, run_tiny, tiny
 
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
@@ -109,22 +110,8 @@ def test_problems_are_found():
     assert len(found) == 3, found
 
 
-def test_the_cells_put_off_add_back_with_no_problems():
-    data = with_put_off(load())
-    assert problems(data, ROOT) == []
-    assert {"count-k21", "query-c10"} <= {w["name"] for w in data["workloads"]}
-    assert len({w["name"] for w in data["workloads"]}) == len(data["workloads"])
-
-
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
-    _every_cell_reports_setup_another_end_to_end_and_a_layer(manifest.Manifest(ROOT))
-
-
-def test_every_cell_put_off_reports_setup_another_end_to_end_and_a_layer():
-    _every_cell_reports_setup_another_end_to_end_and_a_layer(manifest.Manifest(root_for("query-c10")))
-
-
-def _every_cell_reports_setup_another_end_to_end_and_a_layer(man):
+    man = manifest.Manifest(ROOT)
     for w in man.data["workloads"]:
         e2e = [m["name"] for m in man.metrics_of("end_to_end", w["name"])]
         assert "setup_s" in e2e and len(e2e) >= 2
@@ -156,3 +143,65 @@ def test_a_cell_added_by_new_files_alone(tmp_path):
     assert result["correct"] is True
     assert set(result["metrics"]) == {"host_cpu_s_per_gbp", "setup_s"}
     assert list(result["checks"]) == ["tsv_calls_differing", "failed_calls"]
+
+
+@pytest.mark.parametrize("config", configs())
+def test_every_config_has_a_tiny_size(config):
+    man = manifest.Manifest(ROOT)
+    small = tiny(man, config)
+    full = man.config(config)
+    assert small and set(small) <= set(full)
+    assert man.generator({**full, **small}["generator"]).make
+
+
+@pytest.mark.parametrize("command", commands())
+def test_every_command_has_its_faults(command):
+    module = faults(manifest.Manifest(ROOT), command)
+    assert all(callable(getattr(module, name, None)) for name in FAULTS)
+
+
+GENERATOR = """from pathlib import Path
+
+from h100bench.harness.manifest import load_module
+
+reads = load_module(Path(__file__).with_name("illumina_reads.py"), "generator")
+
+
+def make(cfg, seed, workdir, device):
+    return reads.make(cfg, seed, workdir, device)
+"""
+
+
+def test_a_config_added_by_new_files_alone(tmp_path):
+    """A configuration with a generator of its own (one that reuses
+    ``illumina_reads``), a traffic file, its tiny size and a cell, as new
+    files and entries only."""
+    bench = tmp_path / "h100bench"
+    shutil.copytree(ROOT / "h100bench", bench, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _tree_hashes(bench)
+    name = "ecoli-illumina-halfgbp"
+    cfg = {**manifest.load_json(bench / "configs" / "ecoli-illumina-1gbp.json"), "name": name,
+           "generator": "illumina_reads_half", "gbp": 0.5}
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (bench / "generators" / "illumina_reads_half.py").write_text(GENERATOR)
+    (bench / "traffic" / "count-k25.json").write_text(
+        '{"command": "count", "k": 25, "min_count": 2, "histogram": true}\n')
+    (bench / "tests" / "tiny" / f"{name}.json").write_text(
+        json.dumps(tiny(manifest.Manifest(ROOT), "ecoli-illumina-1gbp")))
+    data = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    data["configs"].append({"name": name, "source": "a configuration added by data alone",
+                            "file": f"h100bench/configs/{name}.json", "reduced": ["gbp"],
+                            "why": "a configuration added by data alone"})
+    data["workloads"].append({"name": "count-k25.half", "config": name, "traffic": "count-k25", "chips": 1,
+                              "why": "a cell of a configuration added by data alone"})
+    data["end_to_end"][0]["workloads"].append("count-k25.half")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    after = _tree_hashes(bench)
+    assert {p: h for p, h in after.items() if p in before} == before  # nothing edited
+    assert problems(data, tmp_path) == []
+    assert name in configs(tmp_path) and commands(tmp_path) == commands()
+    result = run_tiny("count-k25.half", root=tmp_path)
+    assert result["correct"] is True
+    assert set(result["metrics"]) == {"host_cpu_s_per_gbp", "setup_s"}
+    assert list(result["checks"]) == ["tsv_calls_differing", "histogram_calls_differing", "failed_calls"]

@@ -16,7 +16,7 @@ from h100bench.reference import build as ref_build
 from h100bench.reference import count as ref_count
 from h100bench.reference import kmers
 from h100bench.reference import query as ref_query
-from h100bench.tests.helpers import ROOT, TINY
+from h100bench.tests.helpers import ROOT, configs, tiny
 
 COMP = str.maketrans("ACGT", "TGCA")
 CPU = torch.device("cpu")
@@ -26,7 +26,7 @@ def make(config: str, seed: int, base: Path):
     """The inputs of a tiny ``config``, in a Workdir under ``base`` that
     lives as long as the test process (its memory files too)."""
     man = Manifest(ROOT)
-    cfg = {**man.config(config), **TINY[config]}
+    cfg = {**man.config(config), **tiny(man, config)}
     return man.generator(cfg["generator"]).make(cfg, seed, Workdir(base), CPU)
 
 
@@ -54,15 +54,24 @@ def reads(tmp_path_factory):
     return make("ecoli-illumina-1gbp", 2**31 + 11, d)
 
 
-@pytest.mark.parametrize("config,name", [("ecoli-illumina-1gbp", "reads.fastq"), ("bacteria-50x5mbp", None)])
-def test_generators_repeat_by_seed(tmp_path, config, name):
+def input_files(inputs) -> dict[str, bytes]:
+    """The bytes of every file an ``Inputs`` names, alone or in a list,
+    under its key and place (a file in memory has a new path each time)."""
+    out = {}
+    for key, value in sorted(vars(inputs).items()):
+        for i, p in enumerate(value if isinstance(value, list) else [value]):
+            if isinstance(p, Path):
+                out[f"{key}/{i}"] = p.read_bytes()
+    return out
+
+
+@pytest.mark.parametrize("config", configs())
+def test_generators_repeat_by_seed(tmp_path, config):
     def files(seed):
-        inputs = make(config, seed, tmp_path)
-        paths = [inputs.reads_path] if name else inputs.genome_paths
-        return {p.name if not name else name: p.read_bytes() for p in paths}
+        return input_files(make(config, seed, tmp_path))
 
     a, b, c = files(5_000_000_000), files(5_000_000_000), files(5_000_000_001)
-    assert a == b
+    assert a and a == b
     assert a.keys() == c.keys() and all(a[p] != c[p] for p in a)
 
 
@@ -93,7 +102,7 @@ def test_build_reference_matches_brute_force(tmp_path, pool):
     assert got["k"] == 31 and len(got["refs"]) == len(genomes.genome_paths)
     for path in genomes.genome_paths:
         seq = "".join(path.read_text().split("\n")[1:])
-        assert len(seq) == TINY["bacteria-50x5mbp"]["genome_bp"]
+        assert len(seq) == tiny(Manifest(ROOT), "bacteria-50x5mbp")["genome_bp"]
         words = sorted(set(canonical_windows(seq, 31)))
         vals = np.array([int(w.translate(str.maketrans("ACGT", "0123")), 4) for w in words], np.uint64)
         assert got["refs"][path.name] == (len(words), tree_digest(vals.astype("<u8")))

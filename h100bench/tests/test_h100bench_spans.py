@@ -4,36 +4,76 @@ the card); the clock mapping is checked against the harness's call
 ranges; the device's idle time is put down to the innermost span on the
 CLI's thread; a port that keeps no spans reads None."""
 
+import json
 import sys
 from types import SimpleNamespace
 
 import pytest
 
 from h100bench.harness import spans
-from h100bench.tests.helpers import run_tiny
+from h100bench.harness.manifest import Manifest
+from h100bench.tests.helpers import ROOT, cells, run_tiny
 
-NEW = {
-    "count-k31": ["wait_s_per_gbp.count", "parse_wait_s_per_gbp.count", "count_file_s_per_gbp.count",
-                  "count_tail_s_per_gbp.count", "idle_wait_s_per_gbp.count"],
-    "build-k31": ["count_file_ms_per_file.build", "db_union_s.build", "db_save_s.build", "idle_union_s.build"],
-}
-CARD_ONLY = ["k2_roofline.count", "fetch_gb_per_s.count"]  # no merge_kernel and no copy on the CPU
+# the per-layer metrics read from the port's spans
+NEW = ["wait_s_per_gbp.count", "parse_wait_s_per_gbp.count", "count_file_s_per_gbp.count",
+       "count_tail_s_per_gbp.count", "idle_wait_s_per_gbp.count",
+       "count_file_ms_per_file.build", "db_union_s.build", "db_save_s.build", "idle_union_s.build",
+       "late_wait_s_per_gbp.query", "query_tail_s_per_gbp.query"]
+IDLE = ["idle_wait_s_per_gbp.count", "idle_union_s.build"]  # the device's idle time by span
+# spans that the CPU never opens, so their metrics read 0 there: no batch
+# staged into a pinned ring (ingest.stage), no copy event waited on
+# (query.late_wait)
+NONE_ON_THE_CPU = ["stage_s_per_gbp.count", "late_wait_s_per_gbp.query"]
+CARD_ONLY = ["k2_roofline.count", "k2_roofline.query", "fetch_gb_per_s.count"]  # no merge_kernel and no copy on the CPU
 
 
-@pytest.mark.parametrize("cell", sorted(NEW))
+def span_metrics(cell: str) -> list[str]:
+    return [m["name"] for m in Manifest(ROOT).metrics_of("per_layer", cell) if m["name"] in NEW + NONE_ON_THE_CPU]
+
+
+@pytest.mark.parametrize("cell", [c for c in cells() if span_metrics(c)])
 def test_a_traced_run_reads_every_span_metric(cell, capfd):
     r = run_tiny(cell, trace=True)
     assert r["correct"] is True
-    for name in NEW[cell]:
+    for name in span_metrics(cell):
         value = r["metrics"][name]["value"]
-        assert isinstance(value, float) and value > 0, (name, value)
+        assert isinstance(value, float) and (value == 0.0 if name in NONE_ON_THE_CPU else value > 0), (name, value)
     assert not set(CARD_ONLY) & set(r["metrics"])
-    if cell == "count-k31":  # no pinned ring on the CPU, so no ingest.stage
-        assert r["metrics"]["stage_s_per_gbp.count"]["value"] == 0.0
-    # the idle split by span, and the share of it named, go to standard error
-    (line,) = [x for x in capfd.readouterr().err.splitlines() if "idle by span" in x]
-    named = float(line.split("(")[1].split(" %")[0])
-    assert 50 <= named <= 100, line
+    # a cell with an idle metric sends the idle split by span, and the
+    # share of it named, to standard error
+    lines = [x for x in capfd.readouterr().err.splitlines() if "idle by span" in x]
+    assert len(lines) == bool(set(IDLE) & set(span_metrics(cell)))
+    for line in lines:
+        named = float(line.split("(")[1].split(" %")[0])
+        assert 50 <= named <= 100, line
+
+
+# query-c10's host-side readers: listed for no cell, since the cell holds
+# no host end-to-end metric for them to move (its host CPU time a call
+# spreads too wide on the shared hosts)
+QUERY_HOST = {"wall_windows_per_s.query": ("commands", "host_clock"),
+              "db_load_s.query": ("host DB model", "host_clock"), "join_s_per_gbp.query": ("joins", "host_clock"),
+              "late_wait_s_per_gbp.query": ("joins", "program_span"),
+              "query_tail_s_per_gbp.query": ("joins", "program_span")}
+
+
+def test_the_query_host_metrics_read_once_listed(tmp_path):
+    """A ``BENCHMARK.json`` that gives query-c10 ``host_cpu_s_per_gbp``
+    and lists its host-side readers, beside this ``h100bench/``, reads
+    every one of them in a traced run."""
+    data = json.loads((ROOT / "BENCHMARK.json").read_text())
+    assert not set(QUERY_HOST) & {m["name"] for m in data["per_layer"]}
+    next(m for m in data["end_to_end"] if m["name"] == "host_cpu_s_per_gbp")["workloads"].append("query-c10")
+    data["per_layer"] += [{"name": n, "unit": "-", "better": "lower", "source": source, "layer": layer,
+                           "moves": "host_cpu_s_per_gbp", "workloads": ["query-c10"]}
+                          for n, (layer, source) in QUERY_HOST.items()]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    (tmp_path / "h100bench").symlink_to(ROOT / "h100bench", target_is_directory=True)
+    r = run_tiny("query-c10", root=tmp_path, trace=True)
+    assert r["correct"] is True
+    for name in QUERY_HOST:
+        value = r["metrics"][name]["value"]
+        assert isinstance(value, float) and (value == 0.0 if name in NONE_ON_THE_CPU else value > 0), (name, value)
 
 
 def test_a_port_without_spans_reads_none(monkeypatch):
@@ -44,7 +84,7 @@ def test_a_port_without_spans_reads_none(monkeypatch):
     monkeypatch.setitem(sys.modules, "orion_kmer_tpu_torch.utils.spans", None)
     r = run_tiny("count-k31", trace=True)
     assert r["correct"] is True
-    assert not set(NEW["count-k31"]) & set(r["metrics"])
+    assert not set(NEW + NONE_ON_THE_CPU) & set(r["metrics"])
     assert "parse_mbp_per_s.count" in r["metrics"]
 
 
